@@ -1,0 +1,24 @@
+"""Architecture registry of the port: get_config(name) -> full ModelConfig;
+get_smoke(name) -> the reduced same-family config for CPU tests."""
+from repro_torch.configs import smollm_360m
+
+_MODULES = {
+    "smollm-360m": smollm_360m,
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise NotImplementedError(f"arch {name!r} is not ported yet; "
+                                  f"ported: {ARCHS}")
+    return _MODULES[name]
+
+
+def get_config(name: str, **overrides):
+    return _module(name).full(**overrides)
+
+
+def get_smoke(name: str, **overrides):
+    return _module(name).smoke(**overrides)
