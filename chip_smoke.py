@@ -13,7 +13,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    posit GEMM within the f32 dot-product error bound, the paged attention
    within 1e-4; each kernel also timed beside its plain version, one
    PyTorch library call where one exists, and the card's bound;
-3. the main path: full-width smollm-360m from the port's seeded init,
+2c. the paper's arithmetic: the elementwise and divide kernels bit-exact
+   against their plain versions (every posit8 pair at es 0..4, every
+   posit8es2 fma triple, 2^26 seeded posit16 pairs and the edge patterns
+   against all 65,536), Table II's wrong-% on the card, the quire GEMM
+   (posit16 in and out, M = 1024 at smollm-360m's shapes) against its
+   plain version, their timings, and the arithmetic main path: `pnp` arrays
+   of 2^26 posit16 lanes through every operator and the GEMM, counters
+   zeroed just before and read just after;
+3. the serving main path: full-width smollm-360m from the port's seeded init,
    post-training quantized to posit16 (weights and KV), serving 16
    requests through PagedServingEngine with every launch counter zeroed
    just before and read just after; then the kernel path's logits against
@@ -21,7 +29,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    the same drain on the CPU, token for token; between them, 8 decode
    steps under torch.profiler (outside the counted run) for the device's
    busy share;
-4. ``kernels: {...}`` with each kernel's launches on the main path, the
+4. ``kernels: {...}`` with each kernel's launches on its main path, the
    card's name and power limit, one JSON line of per-kernel numbers, and
    last the contract line ``{"ok": true, "device": {...}}``.
 
@@ -44,6 +52,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 ATTN_TOL = 1e-4          # kernel vs plain attention, abs and rel
+ARITH_LANES = 1 << 26    # elementwise/divide lanes: 128 MB per p16 operand
+DIV_MODES = ("exact", "poly", "poly_corrected", "pacogen")
+PACOGEN_NR = {8: 0, 16: 1}   # the paper's Table II NR rounds for the LUT
 LOGITS_TOL = 2e-3        # full-width logits, relative to max |logit|
 L2_BYTES = 50 * 2 ** 20
 ITERS = 50               # timed calls per kernel measurement
@@ -62,13 +73,52 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def gpu_max_sm_clock_mhz() -> float:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def sass_per_lane(lib_path: str, kernel: str, lanes: int):
+    """SASS instructions per lane of one kernel instantiation, from
+    `cuobjdump -sass` on the built library: the static instruction count
+    of its main loop (the span of its longest backward branch: the 16-byte
+    vector loop), over the `lanes` one pass of that loop handles.  A
+    diagnostic, not a bound: it counts the kernel's own code, unrolled
+    copies and branches no lane takes included.  Returns (count, method);
+    raises when the count cannot be read."""
+    import re
+    from repro_torch.kernels.build import nvcc
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    for chunk in out.split("Function : ")[1:]:
+        if kernel not in chunk.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), text) for a, text in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", chunk)]
+        span = 0
+        for hi, text in ins:
+            m = re.search(r"\bBRA\S*\s+(?:`\()?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < hi:
+                lo = int(m.group(1), 16)
+                span = max(span, sum(1 for x, _ in ins if lo <= x <= hi))
+        if not span:
+            raise RuntimeError(f"{kernel}: no loop found in its SASS")
+        return span / lanes, (f"static SASS of the vector loop: {span} "
+                              f"instructions / {lanes} lanes")
+    raise RuntimeError(f"{kernel} not in the SASS of {lib_path}")
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time in ms for the work, and which resource sets it."""
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def time_ms(torch, fn, arg_sets, iters: int) -> float:
+def time_ms(torch, fn, arg_sets, iters: int, label: str = "") -> float:
     """Mean device ms per call over `iters` calls cycling through `arg_sets`
     (sets large enough together to leave L2 cold for each call), after
     warm-up.  A device-side sleep holds the stream while the host queues
@@ -89,9 +139,10 @@ def time_ms(torch, fn, arg_sets, iters: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     if host_ms >= e0.elapsed_time(t0):
-        HOST_GAPS.append(getattr(fn, "__name__", "fn"))
-        log(f"[time] note: queuing took {host_ms:.2f} ms, longer than the "
-            f"sleep; this number includes host gaps")
+        label = label or getattr(fn, "__name__", "fn")
+        HOST_GAPS.append(label)
+        log(f"[time] note: queuing {label} took {host_ms:.2f} ms, longer "
+            f"than the sleep; its number includes host gaps")
     return t0.elapsed_time(t1) / iters
 
 
@@ -368,12 +419,16 @@ class Smoke:
                                                                   12)]]
             for M in (8, 1024):
                 x = self.randn(M, K)
+                at = f"{name} M={M}"
                 kern = time_ms(torch, lambda w: G.pw_gemm(
-                    x, w, cfg, transpose_b=tb), [(w,) for w in ws], it)
+                    x, w, cfg, transpose_b=tb), [(w,) for w in ws], it,
+                    f"pw_gemm {at}")
                 plain = time_ms(torch, lambda w: G.pw_gemm_plain(
-                    x, w, cfg, tb), [(w,) for w in ws], 10)
+                    x, w, cfg, tb), [(w,) for w in ws], 10,
+                    f"pw_gemm_plain {at}")
                 lib = time_ms(torch, lambda wf: torch.matmul(
-                    x, wf.T if tb else wf), [(w,) for w in wfs], it)
+                    x, wf.T if tb else wf), [(w,) for w in wfs], it,
+                    f"torch.matmul {at}")
                 nbytes = 4 * M * K + 2 * K * N + 4 * M * N
                 b, by = bound(nbytes, 2.0 * M * K * N)
                 rows.append({"shape": name, "M": M, "K": K, "N": N,
@@ -413,9 +468,9 @@ class Smoke:
         sets = [(q, kp, vp, table, sl) for kp, vp in pools]
         b, by = bound(nbytes, 4.0 * toks * H * D)
         kern = time_ms(torch, lambda *a: F.paged_flash_decode(
-            *a, cfg_kv=cfg), sets, it)
+            *a, cfg_kv=cfg), sets, it, "paged_flash_decode")
         plain = time_ms(torch, lambda *a: F.paged_flash_decode_plain(
-            *a, cfg_kv=cfg), sets, 10)
+            *a, cfg_kv=cfg), sets, 10, "paged_flash_decode_plain")
         lib = self._sdpa_ms(pools, table, sl, q[:, :, None, :],
                             sl - 1, causal=True)
         self.record("paged_flash_decode",
@@ -438,9 +493,9 @@ class Smoke:
         sets = [(q, kp, vp, table, sl, qo) for kp, vp in pools]
         b, by = bound(nbytes, 4.0 * keys * H * D)
         kern = time_ms(torch, lambda *a: F.paged_flash_prefill(
-            *a, cfg_kv=cfg), sets, it)
+            *a, cfg_kv=cfg), sets, it, "paged_flash_prefill")
         plain = time_ms(torch, lambda *a: F.paged_flash_prefill_plain(
-            *a, cfg_kv=cfg), sets, 5)
+            *a, cfg_kv=cfg), sets, 5, "paged_flash_prefill_plain")
         lib = self._sdpa_ms(pools, table, sl, q, qo, causal=True)
         self.record("paged_flash_prefill",
                     shape="one layer, prefill step: 8 x 128 queries at "
@@ -471,7 +526,412 @@ class Smoke:
         def fn(q, k, v, m):
             return sdpa(q, k, v, attn_mask=m, enable_gqa=True)
 
-        return time_ms(torch, fn, sets, ITERS)
+        return time_ms(torch, fn, sets, ITERS, "sdpa")
+
+    # ---- phase 2c: the paper's arithmetic (elementwise, divide, quire GEMM)
+    def _pairs_p8(self, dt):
+        torch = self.torch
+        bits = torch.arange(-128, 128, device=self.dev, dtype=torch.int32)
+        return (bits.repeat_interleave(256).to(dt), bits.repeat(256).to(dt))
+
+    def _rand_bits(self, n, count):
+        torch = self.torch
+        return torch.randint(-(1 << (n - 1)), 1 << (n - 1), (count,),
+                             generator=self.gen, device=self.dev,
+                             dtype=torch.int32).to(
+                                 torch.int8 if n == 8 else torch.int16)
+
+    def _same(self, label, got, want):
+        bad = int((got != want).sum())
+        if bad or got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"[arith] {label}: {bad} of {want.numel()} "
+                                 f"patterns differ from the plain version")
+        return want.numel()
+
+    def _arith_sets(self, label, cfg, A, B, C, modes):
+        """add/sub/mul/fma and every divide (mode, nr) on one operand set,
+        kernel against plain version, bit for bit; returns lanes checked."""
+        from repro_torch.kernels import posit_elementwise as E
+        lanes = 0
+        for op in ("add", "sub", "mul", "fma"):
+            ins = (A, B, C) if op == "fma" else (A, B)
+            lanes += self._same(f"{label} {op}", E.elementwise(op, *ins,
+                                                               cfg=cfg),
+                                E.elementwise_plain(op, *ins, cfg=cfg))
+        for mode, nr in modes:
+            lanes += self._same(
+                f"{label} divide {mode} nr={nr}",
+                E.divide(A, B, cfg=cfg, mode=mode, nr_rounds=nr),
+                E.divide_plain(A, B, cfg=cfg, mode=mode, nr_rounds=nr))
+        return lanes
+
+    def check_arith(self):
+        torch = self.torch
+        from repro_torch.core.types import P8_2, PositConfig
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import posit_elementwise as E
+        modes = [(m, nr) for m in DIV_MODES for nr in (0, 1)]
+        t0 = time.perf_counter()
+        lanes = 0
+        for es in range(5):                      # every posit8 pair
+            cfg = PositConfig(8, es)
+            A, B = self._pairs_p8(torch.int8)
+            lanes += self._arith_sets(f"{cfg} every pair", cfg, A, B,
+                                      torch.roll(A, 12345), modes)
+            one = torch.tensor(cfg.one_bits, dtype=torch.int8,
+                               device=self.dev)
+            lanes += self._same(f"{cfg} reciprocal", ops.divide(one, B,
+                                                                cfg=cfg),
+                                E.divide_plain(one.expand(B.shape), B,
+                                               cfg=cfg))
+        A, B = self._pairs_p8(torch.int8)        # every P8_2 fma triple
+        A3, B3 = A.repeat(256), B.repeat(256)
+        C3 = torch.arange(-128, 128, device=self.dev, dtype=torch.int32
+                          ).repeat_interleave(65536).to(torch.int8)
+        lanes += self._same("posit8es2 every fma triple",
+                            E.elementwise("fma", A3, B3, C3, cfg=P8_2),
+                            E.elementwise_plain("fma", A3, B3, C3, cfg=P8_2))
+        del A3, B3, C3
+        for es in (1, 2):                        # posit16 samples + edges
+            cfg = PositConfig(16, es)
+            A, B, C = (self._rand_bits(16, ARITH_LANES) for _ in range(3))
+            lanes += self._arith_sets(f"{cfg} 2^26 seeded", cfg, A, B, C,
+                                      modes)
+            del A, B, C
+            m = cfg.mask
+            edge = torch.tensor([0, cfg.nar, cfg.one_bits, -cfg.one_bits & m,
+                                 1, m, cfg.maxpos_bits, -cfg.maxpos_bits & m],
+                                device=self.dev, dtype=torch.int32)
+            allp = torch.arange(1 << 16, device=self.dev, dtype=torch.int32)
+            A = torch.cat([edge.repeat_interleave(allp.numel()),
+                           allp.repeat(edge.numel())])
+            B = torch.cat([allp.repeat(edge.numel()),
+                           edge.repeat_interleave(allp.numel())])
+            A, B = (x.to(torch.int16) for x in (A, B))
+            # fma's c: A rolled by 4099 lanes (edges as c beside edge a)
+            lanes += self._arith_sets(f"{cfg} edges x all patterns", cfg, A,
+                                      B, torch.roll(A, 4099), modes)
+        self.err("elementwise", 0.0)
+        self.err("divide", 0.0)
+        self.details["arith_lanes_checked"] = lanes
+        log(f"[arith] kernels vs plain versions bit-exact on {lanes} lanes: "
+            f"p8 es 0..4 every pair (add, sub, mul, fma, 4 divide modes x "
+            f"nr 0/1, reciprocal), every posit8es2 fma triple, p16 es 1/2 "
+            f"2^26 seeded pairs/triples and edges x all patterns "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    def table2(self):
+        """Paper Table II on the card: wrong-% of the approximate dividers
+        (poly NR 1; pacogen NR 0 for p8, 1 for p16) against the exact one,
+        on the protocol of benchmarks/division_accuracy.py (every pair for
+        posit8, 10^6 pairs from np.random.default_rng(0) for posit16);
+        poly_corrected must be exact."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core.types import table2_grid
+        from repro_torch.kernels import posit_elementwise as E
+        rows = []
+        for cfg in table2_grid():
+            if cfg.n == 8:
+                bits = np.arange(256)
+                A, B = np.meshgrid(bits, bits)
+                A, B = A.ravel(), B.ravel()
+            else:
+                rng = np.random.default_rng(0)
+                A = rng.integers(0, 1 << cfg.n, 1_000_000)
+                B = rng.integers(0, 1 << cfg.n, 1_000_000)
+            dt = getattr(torch, cfg.storage_dtype_name)
+            A, B = (torch.from_numpy(x.astype(np.int32)).to(self.dev).to(dt)
+                    for x in (A, B))
+            exact = E.divide(A, B, cfg=cfg, mode="exact")
+            row = {"N": cfg.n, "ES": cfg.es, "pairs": A.numel()}
+            for key, mode, nr in (("poly", "poly", 1),
+                                  ("pacogen", "pacogen", PACOGEN_NR[cfg.n]),
+                                  ("poly_corrected", "poly_corrected", 1)):
+                got = E.divide(A, B, cfg=cfg, mode=mode, nr_rounds=nr)
+                row[f"{key}_wrong_pct"] = 100.0 * float(
+                    (got != exact).double().mean())
+                row[f"{key}_NR"] = nr
+            rows.append(row)
+            log(f"[table2] {cfg}: {row['pairs']} pairs, wrong % vs exact: "
+                f"poly (NR 1) {row['poly_wrong_pct']!r}, pacogen (NR "
+                f"{row['pacogen_NR']}) {row['pacogen_wrong_pct']!r}, "
+                f"poly_corrected {row['poly_corrected_wrong_pct']!r}")
+            if row["poly_corrected_wrong_pct"] != 0.0:
+                raise AssertionError(f"Table II {cfg}: poly_corrected is not "
+                                     f"correctly rounded")
+        self.details["table2"] = rows
+
+    def _posit_within(self, label, pos, acc_ref, tol, cfg):
+        """pos must lie between the roundings of acc_ref - tol and
+        acc_ref + tol (posit patterns are monotone as signed ints): what an
+        accumulator within `tol` of acc_ref, rounded once, can give.
+        Returns (equal, one pattern apart, further apart) counts against
+        the rounding of acc_ref itself."""
+        from repro_torch.kernels import ref
+        lo = ref.encode_ref(acc_ref - tol, cfg).int()
+        hi = ref.encode_ref(acc_ref + tol, cfg).int()
+        p = pos.int()
+        if not bool(((lo <= p) & (p <= hi)).all()):
+            raise AssertionError(f"{label}: posit out outside the rounding "
+                                 f"of the f32 bound around the plain sum")
+        d = (p - ref.encode_ref(acc_ref, cfg).int()).abs()
+        return (int((d == 0).sum()), int((d == 1).sum()),
+                int((d > 1).sum()))
+
+    def check_quire_gemm(self):
+        """The quire GEMM (posit16 A and B) at M = 1024 against smollm-360m's
+        layer shapes: the f32 accumulator within the f32 dot-product bound
+        of the plain version; posit out the single rounding of the kernel's
+        own accumulator, so it differs from the plain version's only where
+        the two accumulators straddle a rounding boundary (counted, and
+        held within the rounding of the bound)."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import posit_gemm as G
+        from repro_torch.kernels import ref
+        cfg, worst, counts = P16_2, 0.0, [0, 0, 0]
+        for K, N, tb in QUIRE_SHAPES + [(960, 2560, True)]:
+            a = ref.encode_ref(self.randn(1024, K), cfg)
+            b = ref.encode_ref(self.randn(*((N, K) if tb else (K, N)),
+                                          scale=K ** -0.5), cfg)
+            kw = dict(cfg_a=cfg, cfg_b=cfg, transpose_b=tb)
+            acc = G.posit_gemm(a, b, **kw)
+            want = G.posit_gemm_plain(a, b, **kw)
+            af, bf = ref.decode_ref(a, cfg), ref.decode_ref(b, cfg)
+            tol = 2 * K * 2.0 ** -24 * (af.abs() @ (bf.T if tb else bf).abs())
+            diff = (acc - want).abs()
+            worst = max(worst, float((diff / (tol + 1e-30)).max()))
+            self.err("posit_gemm", diff.max())
+            pos = G.posit_gemm(a, b, cfg_out=cfg, out_posit=True, **kw)
+            pos_plain = G.posit_gemm_plain(a, b, cfg_out=cfg, out_posit=True,
+                                           **kw)
+            # the epilogue rounds the kernel's own accumulator exactly once
+            self._same(f"quire GEMM K={K} N={N} epilogue",
+                       pos, ref.encode_ref(acc, cfg))
+            self._same(f"quire GEMM K={K} N={N} plain epilogue", pos_plain,
+                       ref.encode_ref(want, cfg))
+            c3 = self._posit_within(f"quire GEMM K={K} N={N}", pos, want,
+                                    tol, cfg)
+            counts = [x + y for x, y in zip(counts, c3)]
+            log(f"[quire] {cfg} M=1024 K={K} N={N} transpose_b={tb}: f32 "
+                f"max|err| {float(diff.max()):.3e}; posit out vs plain: "
+                f"{c3[0]} equal, {c3[1]} one pattern apart, {c3[2]} further "
+                f"(accumulators straddling rounding boundaries)")
+        if worst > 1.0:
+            raise AssertionError("quire GEMM: f32 accumulator outside the "
+                                 "f32 dot-product bound")
+        self.details["quire_gemm"] = {"worst_err_over_bound": worst,
+                                      "equal": counts[0],
+                                      "one_pattern_apart": counts[1],
+                                      "further_apart": counts[2]}
+        log(f"[quire] worst err/bound {worst:.3e}; posit outputs vs plain: "
+            f"{counts[0]} equal, {counts[1]} one pattern apart, {counts[2]} "
+            f"further, all within the rounding of the f32 bound")
+
+    def time_arith(self):
+        """Each arithmetic kernel at its main path's size: elementwise and
+        divide over 2^26 posit16 lanes, the quire GEMM at M = 1024 on
+        smollm-360m's shapes; beside the plain version, the library call
+        where one exists, and the bound."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import build
+        from repro_torch.kernels import posit_elementwise as E
+        from repro_torch.kernels import posit_gemm as G
+        from repro_torch.kernels import ref
+        cfg, lanes = P16_2, ARITH_LANES
+        clock_mhz = gpu_max_sm_clock_mhz()
+        issue = 132 * 128 * clock_mhz * 1e6      # thread-instructions / s
+        lib = str(build.library_path("posit_elementwise"))
+        sets = [tuple(self._rand_bits(16, lanes) for _ in range(3))
+                for _ in range(2)]               # 2 x 384 MB: L2 stays cold
+        rows = {}
+
+        def row(name, kind, fn, plain, n_in, sass):
+            # bound: HBM bytes (n_in operands read, one written); the SASS
+            # count beside it is a diagnostic of the kernel's own code
+            ipl, how = sass_per_lane(lib, sass, 8)
+            tb = (n_in + 1) * 2 * lanes / HBM_BYTES_PER_S * 1e3
+            ti = lanes * ipl / issue * 1e3
+            kern = time_ms(torch, fn, [s[:n_in] for s in sets], ITERS, name)
+            pl = time_ms(torch, plain, [s[:n_in] for s in sets], 3,
+                         f"{name} plain")
+            rows[name] = {
+                "kind": kind, "ms": kern, "plain_ms": pl, "bound_ms": tb,
+                "bound_by": "bytes", "library_ms": None,
+                "sass_instr_per_lane": ipl, "sass_issue_ms": ti,
+                "sass_method": how}
+            log(f"[time] {name} 2^26 p16 lanes: {kern:.4f} ms (plain "
+                f"{pl:.2f}; bound {tb:.4f} by bytes; no library call; "
+                f"diagnostic: {how} = {ipl:.1f} per lane, issued at "
+                f"{clock_mhz} MHz x 132 SMs x 128 lanes in {ti:.4f} ms)")
+
+        for op, code in (("add", 0), ("sub", 1), ("mul", 2), ("fma", 3)):
+            n_in = 3 if op == "fma" else 2
+            row(f"elementwise {op}", "elementwise",
+                lambda *a, op=op: E.elementwise(op, *a, cfg=cfg),
+                lambda *a, op=op: E.elementwise_plain(op, *a, cfg=cfg),
+                n_in, f"ew_kernelILi{code}EsE")
+        for i, mode in enumerate(DIV_MODES):
+            row(f"divide {mode} nr=1", "divide",
+                lambda a, b, mode=mode: E.divide(a, b, cfg=cfg, mode=mode),
+                lambda a, b, mode=mode: E.divide_plain(a, b, cfg=cfg,
+                                                       mode=mode),
+                2, f"div_kernelILi{i}EsE")
+        del sets
+        self.details["arith_timings"] = rows
+        for name, key in (("elementwise", "elementwise add"),
+                          ("divide", "divide poly_corrected nr=1")):
+            r = rows[key]
+            self.record(name, shape=f"{key}, 2^26 posit16 lanes, cold",
+                        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")})
+
+        # the quire GEMM: posit16 A and B -> posit16, M = 1024
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                 "bytes": 0.0, "flops": 0.0}
+        grows = []
+        for K, N, _ in QUIRE_SHAPES:
+            bsets = [ref.encode_ref(self.randn(K, N, scale=K ** -0.5), cfg)
+                     for _ in range(copies_for(2 * K * N, 8))]
+            a = ref.encode_ref(self.randn(1024, K), cfg)
+            af = ref.decode_ref(a, cfg)
+            bfs = [ref.decode_ref(b, cfg) for b in bsets[:4]]
+            kw = dict(cfg_a=cfg, cfg_b=cfg, cfg_out=cfg, out_posit=True)
+            at = f"quire GEMM K={K} N={N}"
+            kern = time_ms(torch, lambda b: G.posit_gemm(a, b, **kw),
+                           [(b,) for b in bsets], ITERS, at)
+            pl = time_ms(torch, lambda b: G.posit_gemm_plain(a, b, **kw),
+                         [(b,) for b in bsets], 10, f"{at} plain")
+            libm = time_ms(torch, lambda bf: torch.matmul(af, bf),
+                           [(bf,) for bf in bfs], ITERS, f"{at} torch.matmul")
+            nbytes = 2 * 1024 * K + 2 * K * N + 2 * 1024 * N
+            b_ms, by = bound(nbytes, 2.0 * 1024 * K * N)
+            grows.append({"M": 1024, "K": K, "N": N, "ms": kern,
+                          "plain_ms": pl, "library_ms": libm,
+                          "bound_ms": b_ms, "bound_by": by})
+            log(f"[time] posit_gemm p16 x p16 -> p16 M=1024 K={K} N={N}: "
+                f"{kern:.4f} ms (plain {pl:.4f}, torch.matmul on decoded f32 "
+                f"{libm:.4f}, bound {b_ms:.4f} by {by})")
+            for k, v in (("ms", kern), ("plain_ms", pl), ("library_ms", libm),
+                         ("bytes", nbytes), ("flops", 2.0 * 1024 * K * N)):
+                total[k] += v
+        self.details["quire_gemm_timings"] = grows
+        b_ms, by = bound(total["bytes"], total["flops"])
+        self.record("posit_gemm", shape="quire GEMM p16 x p16 -> p16, M=1024, "
+                    "sum of 960x960 + 960x2560 + 2560x960",
+                    ms=total["ms"], plain_ms=total["plain_ms"],
+                    library_ms=total["library_ms"], bound_ms=b_ms,
+                    bound_by=by)
+        self.details["gpu_max_sm_clock_mhz"] = clock_mhz
+
+    def arithmetic(self):
+        """The arithmetic main path through the first-class API: pnp arrays of
+        2^26 posit16 lanes through +, -, *, fma, / (every mode) and the
+        reciprocal, and the quire GEMM on smollm-360m's shapes, with every
+        launch counter zeroed just before and read just after; then its
+        encodes against the plain encode on the card, and its outputs
+        against the plain versions on the CPU."""
+        torch = self.torch
+        import repro_torch.pnp as pnp
+        from repro_torch.core import ops as cops
+        from repro_torch.core.quire import quire_matmul
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import posit_codec as C
+        cfg = pnp.P16_2
+        x, y, z = (self.randn(ARITH_LANES) for _ in range(3))
+        mats = [self.randn(1024, 960)] + [self.randn(K, N, scale=K ** -0.5)
+                                          for K, N, _ in QUIRE_SHAPES]
+        torch.cuda.synchronize()
+
+        # ---- the counted run ----
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        a, b, c = (pnp.asarray(v, cfg) for v in (x, y, z))
+        out = {"add": a + b, "sub": a - b, "mul": a * b,
+               "fma": pnp.fma(a, b, c), "div": a / b,
+               "recip": pnp.reciprocal(b)}
+        for mode in DIV_MODES:
+            out[mode] = pnp.divide(a, b, mode=mode)
+        A = pnp.asarray(mats[0], cfg)
+        Ws = [pnp.asarray(w, cfg) for w in mats[1:]]
+        h1 = A @ Ws[0]                           # 1024x960 @ 960x960
+        h2 = A @ Ws[1]                           # @ 960x2560
+        h3 = h2 @ Ws[2]                          # 1024x2560 @ 2560x960
+        acc = pnp.matmul(A, Ws[0], out_posit=False)
+        lt = a < b
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        plain = ops.plain_counts()
+        # ---- end of the counted run ----
+
+        expect = {"elementwise": 4, "divide": 6, "posit_gemm": 4}
+        if any(plain.values()):
+            raise AssertionError(f"plain versions ran on the arithmetic "
+                                 f"path: {plain}")
+        if {k: launches[k] for k in expect} != expect:
+            raise AssertionError(f"arithmetic launch counts {launches} "
+                                 f"differ from the path's {expect}")
+        # every encode of the counted run (pnp.asarray) against the plain
+        # encode of the same values, in full on the card
+        for label, arr, v in (("a", a, x), ("b", b, y), ("c", c, z),
+                              ("A", A, mats[0]),
+                              *((f"W{i}", W, m) for i, (W, m) in
+                                enumerate(zip(Ws, mats[1:])))):
+            self._same(f"pnp.asarray {label} {tuple(v.shape)}", arr.bits,
+                       C.encode_block_plain(v, cfg))
+        n = 1 << 16                              # checked on the CPU
+        cpu = {k: v.bits[:n].cpu() for k, v in (("a", a), ("b", b),
+                                                 ("c", c))}
+        want = {"add": cops.padd(cpu["a"], cpu["b"], cfg),
+                "sub": cops.psub(cpu["a"], cpu["b"], cfg),
+                "mul": cops.pmul(cpu["a"], cpu["b"], cfg),
+                "fma": cops.pfma(cpu["a"], cpu["b"], cpu["c"], cfg),
+                "div": cops.pdiv(cpu["a"], cpu["b"], cfg),
+                "recip": cops.precip(cpu["b"], cfg)}
+        for mode in DIV_MODES:
+            want[mode] = cops.pdiv(cpu["a"], cpu["b"], cfg, mode=mode)
+        nar = cfg.nar - (1 << cfg.n)             # NaR, sign-extended
+        b_zero = b.bits == 0                     # x/0 = NaR, and only that
+        for k, w in want.items():
+            self._same(f"pnp {k} vs the CPU", out[k].bits[:n].cpu(), w)
+            want_nar = (b_zero if k in DIV_MODES + ("div", "recip")
+                        else torch.zeros_like(b_zero))
+            if not torch.equal(out[k].bits == nar, want_nar):
+                raise AssertionError(f"pnp {k}: NaR where the operands give "
+                                     f"none, or none where they do")
+        if not torch.equal(lt[:n].cpu(), cops.plt(cpu["a"], cpu["b"], cfg)):
+            raise AssertionError("pnp a < b disagrees with the CPU")
+        for X, W, Y in ((A, Ws[0], h1), (A, Ws[1], h2), (h2, Ws[2], h3)):
+            xf, wf = X[:8].to("cpu").to_f32(), W.to("cpu").to_f32()
+            ref_acc = quire_matmul(X.bits[:8].cpu(), W.bits.cpu(), cfg,
+                                   out_posit=False)
+            tol = 2 * xf.shape[1] * 2.0 ** -24 * (xf.abs() @ wf.abs())
+            if tuple(Y.shape) != (1024, W.shape[1]):
+                raise AssertionError("pnp matmul: wrong output shape")
+            self._posit_within("pnp matmul vs the CPU", Y.bits[:8].cpu(),
+                               ref_acc, tol, cfg)
+            if Y is h1 and not (
+                    bool(torch.isfinite(acc).all())
+                    and bool(((acc[:8].cpu() - ref_acc).abs() <= tol).all())):
+                raise AssertionError("pnp matmul f32 accumulator disagrees")
+        for name in expect:
+            self.record(name, launches=launches[name])
+        self.details["arithmetic"] = {"launches": launches, "wall_s": wall,
+                                      "lanes": ARITH_LANES,
+                                      "zero_divisors": int(b_zero.sum())}
+        log(f"[arith] pnp main path on {self.details['gpu']}: 2^26 posit16 "
+            f"lanes through + - * fma / (4 modes) reciprocal <, and the "
+            f"quire GEMM chain 1024x960 @ 960x960, @ 960x2560, @ 2560x960: "
+            f"{wall:.3f} s wall; launches {json.dumps(launches)}; "
+            f"{int(b_zero.sum())} zero divisors give NaR; its "
+            f"{launches['encode_block']} encodes equal the plain encode in "
+            f"full; outputs equal to the plain versions on the CPU (first "
+            f"2^16 lanes; GEMM rows 0-7 within the rounding of the f32 "
+            f"bound)")
+        return {k: launches[k] for k in expect}
 
     # ---- phase 3: the main path ------------------------------------------
     def serve(self):
@@ -518,7 +978,7 @@ class Smoke:
         if bad or stats["failed_nar"] or stats["completed"] != len(reqs):
             raise AssertionError(f"serving: requests {bad} incomplete; "
                                  f"stats {stats}")
-        missing = [k for k, n in launches.items() if n == 0]
+        missing = [k for k in SERVING_KERNELS if launches[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main "
                                  f"path: {missing}")
@@ -535,6 +995,7 @@ class Smoke:
         if {k: launches[k] for k in expect} != expect:
             raise AssertionError(f"launch counts {launches} differ from "
                                  f"the path's structure {expect}")
+        launches = {k: launches[k] for k in SERVING_KERNELS}
         for name, n in launches.items():
             self.record(name, launches=n)
 
@@ -744,6 +1205,10 @@ GEMM_SHAPES = [("wq/wo", 960, 960, False), ("wk/wv", 960, 320, False),
                ("w_up/w_gate", 960, 2560, False), ("w_down", 2560, 960, False),
                ("unembed", 960, 49152, True)]
 GEMM_PER_LAYER = {"wq/wo": 2, "wk/wv": 2, "w_up/w_gate": 2, "w_down": 1}
+# (K, N, transpose_b) of the quire GEMM at smollm-360m's layer shapes
+QUIRE_SHAPES = [(960, 960, False), (960, 2560, False), (2560, 960, False)]
+SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
+                   "paged_flash_decode", "paged_flash_prefill")
 
 KERNEL_META = {
     "decode_block": ("src/repro_torch/csrc/posit_codec.cu",
@@ -758,6 +1223,12 @@ KERNEL_META = {
                            "src/repro/kernels/flash_attention.py:650"),
     "paged_flash_prefill": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/flash_attention.py:259"),
+    "elementwise": ("src/repro_torch/csrc/posit_elementwise.cu",
+                    "src/repro/kernels/posit_elementwise.py:50"),
+    "divide": ("src/repro_torch/csrc/posit_elementwise.cu",
+               "src/repro/kernels/posit_elementwise.py:110"),
+    "posit_gemm": ("src/repro_torch/csrc/posit_gemm.cu",
+                   "src/repro/kernels/posit_gemm.py:87"),
 }
 
 
@@ -795,6 +1266,14 @@ def main() -> int:
     s.time_kernels()
     log(f"[phase] kernel timings {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    s.check_arith()
+    s.table2()
+    s.check_quire_gemm()
+    s.time_arith()
+    arith_launches = s.arithmetic()
+    torch.cuda.empty_cache()
+    log(f"[phase] arithmetic {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     qparams, cfg, reqs = s.serve()
     log(f"[phase] serving {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -820,8 +1299,10 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"gpu": card, "kernels": rows, **s.details}, f,
                       indent=1)
-    # the main path's own counts, read right after the counted drain
-    log("kernels: " + json.dumps(s.details["serving"]["launches"]))
+    # the main paths' own counts: the serving kernels read right after the
+    # counted drain, the arithmetic kernels right after the counted pnp run
+    log("kernels: " + json.dumps({**s.details["serving"]["launches"],
+                                  **arith_launches}))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

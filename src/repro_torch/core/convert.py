@@ -34,3 +34,21 @@ def f32_to_posit(v: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
 def posit_to_f32(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     """Exact posit -> float32 (PFCVT.S); NaR -> NaN."""
     return decode_to_f32(p, cfg)
+
+
+def bf16_to_posit(v: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
+    return f32_to_posit(v.to(torch.float32), cfg)
+
+
+def f32_to_bf16(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16 with NaN as the quiet NaN 0x7FC0, as XLA gives it
+    (torch's vectorized CPU cast gives 0xFFFF)."""
+    nan = torch.full((), 0x7FC0, dtype=torch.int16,
+                     device=v.device).view(torch.bfloat16)
+    return torch.where(torch.isnan(v), nan, v.to(torch.bfloat16))
+
+
+def posit_to_bf16(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
+    """posit -> bfloat16 (the f32 intermediate is exact for n <= 16, so the
+    double rounding is innocuous); NaR -> NaN."""
+    return f32_to_bf16(decode_to_f32(p, cfg))

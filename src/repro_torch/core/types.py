@@ -97,3 +97,9 @@ P16_2 = PositConfig(16, 2)
 P32_2 = PositConfig(32, 2)
 
 STANDARD = {8: P8_2, 16: P16_2, 32: P32_2}
+
+
+def table2_grid() -> tuple[PositConfig, ...]:
+    """The <N, ES> grid of the paper's Table II (division accuracy)."""
+    return (tuple(PositConfig(8, es) for es in range(0, 5))
+            + tuple(PositConfig(16, es) for es in range(0, 4)))

@@ -1,45 +1,99 @@
-// K2: f32 activations x posit weights -> f32, the linear and unembedding
-// GEMM of the serving path.
+// K2: the posit GEMM with in-kernel decode: f32 activations x posit weights
+// -> f32 on the serving path (linear layers and the tied unembedding), and
+// the general posit x posit -> f32 or posit form of the quire GEMM.
 //
-// Replaces the TPU kernel repro/kernels/posit_gemm.py::posit_gemm in its
-// pw_gemm form (:158; pallas_call at :139): cfg_a = None, posit B, f32 out,
-// transpose_b in {False, True}.  out_posit and transpose_a are not ported.
+// Replaces the TPU kernel repro/kernels/posit_gemm.py::posit_gemm (:87;
+// pallas_call at :139) in two forms.  posit_pw_gemm is its pw_gemm form
+// (:158): cfg_a = None, posit B, f32 out, transpose_b in {False, True}.
+// posit_gemm is the general form: A and B each f32 or posit (int8/int16,
+// any format), f32 out or posit out (out_posit: the accumulator rounded
+// once to cfg_out with posit_encode, the quire's single rounding), and
+// transpose_b.  transpose_a (the training backward) is not ported.
 //
 // Bound on an H100.  A decode step (M = max_seqs <= 8 rows) reads every
 // weight once, 2 B per element at posit16, for 2*M flops per element: HBM
-// bytes bound it.  A prefill chunk (M = max_seqs * prefill_chunk) does
-// 2*M flops per weight element and is bound by f32 FFMA throughput (no
-// tensor cores: TF32 keeps 11 significand bits and a posit16 es2 value
-// needs up to 12, so a TF32 product would round the weights and the
-// activations away from the reference's exact-decode f32 semantics).
+// bytes bound it.  A prefill chunk (M = max_seqs * prefill_chunk), and the
+// quire GEMM at M = 1024, do 2*M flops per weight element and are bound by
+// f32 FFMA throughput (no tensor cores: TF32 keeps 11 significand bits and
+// a posit16 es2 value needs up to 12, so a TF32 product would round the
+// operands away from the reference's exact-decode f32 semantics).
 //
 // Design.  The launch is chosen by the wrapper's M; every one is a single
 // kernel launch with a fixed summation order (run-to-run deterministic):
-//   M <= 8 (decode steps): a skinny kernel.  Without transpose_b each lane
-//     owns one output column (coalesced 2-byte weight reads across the
-//     warp) and the 32 warps of a block split K into contiguous ranges;
-//     their partial sums meet in shared memory and add in warp order.  With
-//     transpose_b (the [V, d] table, k contiguous) each warp owns one
-//     column, lanes stride k, and a butterfly shuffle adds the lanes.  Many
-//     independent weight loads are in flight per SM, which is what an
-//     HBM-bound GEMV needs; the tiled kernel below kept one k-tile in
-//     flight per block and was latency-bound at M = 8.
-//   M > 8 (prefill chunks): tiled, BM=64, BN=64, BK=16, 4x4 outputs per
-//     thread.
-// Each tiled block stages a BM x BK tile of x and a BK x BN tile of the
-// posit weight in shared memory; the weight tile is decoded to exact f32 as
-// it is stored, so HBM only sees the narrow ints.  For transpose_b the tile
-// is read along the stored k axis and written transposed into shared
-// memory: no transposed copy exists anywhere.  A tiled output accumulates
-// over k in order 0..K-1 with fmaf in one thread.
+//   M <= 8 (decode steps, pw form): a skinny kernel.  Without transpose_b
+//     each lane owns one output column (coalesced 2-byte weight reads
+//     across the warp) and the 32 warps of a block split K into contiguous
+//     ranges; their partial sums meet in shared memory and add in warp
+//     order.  With transpose_b (the [V, d] table, k contiguous) each warp
+//     owns one column, lanes stride k, and a butterfly shuffle adds the
+//     lanes.  Many independent weight loads are in flight per SM, which is
+//     what an HBM-bound GEMV needs; the tiled kernel below kept one k-tile
+//     in flight per block and was latency-bound at M = 8.
+//   M > 8, and every general-form call: tiled, BM=64, BN=64, BK=16, 4x4
+//     outputs per thread.
+// Each tiled block stages a BM x BK tile of A and a BK x BN tile of B in
+// shared memory; a posit tile is decoded to exact f32 as it is stored, so
+// HBM only sees the narrow ints.  The operand types are the loader
+// functors of the kernel template: fixed types for the pw form, a
+// warp-uniform switch on the storage type for the general form (it runs in
+// the staging loop, not in the FFMA loop).  For transpose_b the B tile is
+// read along the stored k axis and written transposed into shared memory:
+// no transposed copy exists anywhere.  A tiled output accumulates over k in
+// order 0..K-1 with fmaf in one thread; the epilogue stores it, or its
+// posit encoding.
 #include "posit_codec.cuh"
 
 namespace {
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool TRANSB>
+// Tile loaders: element i of an operand -> exact f32.
+struct F32In {
+  __device__ __forceinline__ float operator()(const void* p, size_t i) const {
+    return static_cast<const float*>(p)[i];
+  }
+};
+template <typename T>
+struct PositIn {
+  int n, es;
+  __device__ __forceinline__ float operator()(const void* p, size_t i) const {
+    return load_value<T>(static_cast<const T*>(p), i, n, es);
+  }
+};
+struct AnyIn {                         // storage type known at run time
+  int dtype, n, es;
+  __device__ __forceinline__ float operator()(const void* p, size_t i) const {
+    if (dtype == DT_I8)
+      return load_value<int8_t>(static_cast<const int8_t*>(p), i, n, es);
+    if (dtype == DT_I16)
+      return load_value<int16_t>(static_cast<const int16_t*>(p), i, n, es);
+    return static_cast<const float*>(p)[i];
+  }
+};
+// Epilogues: the f32 accumulator -> element i of the output.
+struct F32Out {
+  __device__ __forceinline__ void operator()(void* p, size_t i,
+                                             float v) const {
+    static_cast<float*>(p)[i] = v;
+  }
+};
+struct AnyOut {                        // f32, or one RNE rounding to posit
+  int dtype, n, es;
+  __device__ __forceinline__ void operator()(void* p, size_t i,
+                                             float v) const {
+    if (dtype == DT_I8)
+      static_cast<int8_t*>(p)[i] = store_value<int8_t>(v, n, es);
+    else if (dtype == DT_I16)
+      static_cast<int16_t*>(p)[i] = store_value<int16_t>(v, n, es);
+    else
+      static_cast<float*>(p)[i] = v;
+  }
+};
+
+template <class LA, class LB, class ST, int BM, int BN, int BK, int TM,
+          int TN, bool TRANSB>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-pw_gemm_kernel(const float* __restrict__ x, const T* __restrict__ w,
-               float* __restrict__ out, int M, int N, int K, int n, int es) {
+gemm_tile_kernel(const void* __restrict__ a, const void* __restrict__ b,
+                 void* __restrict__ out, int M, int N, int K, LA load_a,
+                 LB load_b, ST store) {
   constexpr int TX = BN / TN;          // threads along n
   constexpr int TY = BM / TM;          // threads along m
   constexpr int NT = TX * TY;
@@ -59,17 +113,18 @@ pw_gemm_kernel(const float* __restrict__ x, const T* __restrict__ w,
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int idx = tid; idx < BM * BK; idx += NT) {
-      const int mm = idx / BK, kk = idx % BK;   // x is [M, K], k contiguous
+      const int mm = idx / BK, kk = idx % BK;   // a is [M, K], k contiguous
       const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? x[static_cast<size_t>(gm) * K + gk]
-                                      : 0.0f;
+      As[kk][mm] = (gm < M && gk < K)
+                       ? load_a(a, static_cast<size_t>(gm) * K + gk)
+                       : 0.0f;
     }
     for (int idx = tid; idx < BK * BN; idx += NT) {
       int kk, nn;
-      if (TRANSB) {                             // w is [N, K], k contiguous
+      if (TRANSB) {                             // b is [N, K], k contiguous
         nn = idx / BK;
         kk = idx % BK;
-      } else {                                  // w is [K, N], n contiguous
+      } else {                                  // b is [K, N], n contiguous
         kk = idx / BN;
         nn = idx % BN;
       }
@@ -78,22 +133,22 @@ pw_gemm_kernel(const float* __restrict__ x, const T* __restrict__ w,
       if (gk < K && gn < N) {
         const size_t off = TRANSB ? static_cast<size_t>(gn) * K + gk
                                   : static_cast<size_t>(gk) * N + gn;
-        val = load_value<T>(w, off, n, es);
+        val = load_b(b, off);
       }
       Bs[kk][nn] = val;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+      float av[TM], bv[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
+      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + i * TY];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * TX];
+      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + j * TX];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -104,7 +159,7 @@ pw_gemm_kernel(const float* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + j * TX;
-      if (gn < N) out[static_cast<size_t>(gm) * N + gn] = acc[i][j];
+      if (gn < N) store(out, static_cast<size_t>(gm) * N + gn, acc[i][j]);
     }
   }
 }
@@ -180,13 +235,15 @@ pw_gemv_t_kernel(const float* __restrict__ x, const T* __restrict__ w,
     for (int m = 0; m < M; ++m) out[static_cast<size_t>(m) * N + col] = acc[m];
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool TRANSB>
-void launch(const float* x, const void* w, float* out, int M, int N, int K,
-            int n, int es, cudaStream_t st) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  dim3 block((BM / TM) * (BN / TN));
-  pw_gemm_kernel<T, BM, BN, BK, TM, TN, TRANSB><<<grid, block, 0, st>>>(
-      x, static_cast<const T*>(w), out, M, N, K, n, es);
+constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
+
+template <bool TRANSB, class LA, class LB, class ST>
+void launch_tiled(const void* a, const void* b, void* out, int M, int N,
+                  int K, LA la, LB lb, ST st, cudaStream_t stream) {
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  dim3 block((kBM / kTM) * (kBN / kTN));
+  gemm_tile_kernel<LA, LB, ST, kBM, kBN, kBK, kTM, kTN, TRANSB>
+      <<<grid, block, 0, stream>>>(a, b, out, M, N, K, la, lb, st);
 }
 
 template <typename T, bool TRANSB>
@@ -201,7 +258,8 @@ void dispatch_tile(const float* x, const void* w, float* out, int M, int N,
       pw_gemv_kernel<T><<<(N + 31) / 32, kGemvWarps * 32, 0, st>>>(
           x, wt, out, M, N, K, n, es);
   } else {
-    launch<T, 64, 64, 16, 4, 4, TRANSB>(x, w, out, M, N, K, n, es, st);
+    launch_tiled<TRANSB>(x, w, out, M, N, K, F32In{}, PositIn<T>{n, es},
+                         F32Out{}, st);
   }
 }
 
@@ -230,5 +288,26 @@ extern "C" int posit_pw_gemm(const void* x, const void* w, void* out, int M,
     dispatch_trans<int16_t>(xf, w, of, M, N, K, transpose_b, n, es, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a [M, K], b [K, N] (or [N, K] when transpose_b), out [M, N]; each of the
+// three is f32 (dtype 0) or posit ints (1: int8, 2: int16) of format (n, es).
+extern "C" int posit_gemm(const void* a, const void* b, void* out, int M,
+                          int N, int K, int transpose_b, int dta, int na,
+                          int esa, int dtb, int nb, int esb, int dto, int no,
+                          int eso, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  const int dts[3] = {dta, dtb, dto};
+  for (int dt : dts)
+    if (dt != DT_F32 && dt != DT_I8 && dt != DT_I16)
+      return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AnyIn la{dta, na, esa}, lb{dtb, nb, esb};
+  const AnyOut so{dto, no, eso};
+  if (transpose_b)
+    launch_tiled<true>(a, b, out, M, N, K, la, lb, so, st);
+  else
+    launch_tiled<false>(a, b, out, M, N, K, la, lb, so, st);
   return static_cast<int>(cudaGetLastError());
 }

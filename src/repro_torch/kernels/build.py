@@ -39,6 +39,13 @@ SIGNATURES = {
     },
     "posit_gemm": {
         "posit_pw_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "posit_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _P),
+    },
+    "posit_elementwise": {
+        "posit_elementwise": (_I, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+        "posit_divide": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
     },
     "paged_attention": {
         "posit_paged_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -65,7 +72,8 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where library `name` of the current sources and flags is built."""
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.read_bytes())
@@ -88,7 +96,7 @@ def build_all(names=tuple(SIGNATURES)) -> float:
     t0 = time.perf_counter()
     jobs = []
     for name in names:
-        out = _library_path(name)
+        out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -119,7 +127,7 @@ def library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     _require_cuda()
-    path = _library_path(name)
+    path = library_path(name)
     if not path.exists():
         build_all((name,))
     lib = ctypes.CDLL(str(path))

@@ -1,19 +1,26 @@
-"""Kernel dispatch for the model and serving code.
+"""Kernel dispatch for the model, serving and arithmetic code.
 
-The counterpart of ``repro/kernels/ops.py`` for the serving path:
-`pw_matmul`, `decode`/`encode`, and the paged attention entry points.
-The device of the operands decides: CPU tensors take the plain versions,
-CUDA tensors the kernels, with no fallback between them.  `KERNELS` names
-every kernel wrapper with its plain version, for the launch counters.
+The counterpart of ``repro/kernels/ops.py``: `pw_matmul`, `decode`/`encode`,
+the paged attention entry points, and the posit arithmetic of
+``repro.pnp`` (`elementwise`, `divide`, `gemm`).  The device of the
+operands decides: CPU tensors take the plain versions, CUDA tensors the
+kernels, with no fallback between them.  `KERNELS` names every kernel
+wrapper with its plain version, for the launch counters.
+
+Operands may be `PositArray`s (the format travels with the array) or raw
+storage ints with an explicit cfg; a posit result computed from
+PositArray inputs comes back as a PositArray, raw inputs give raw bits.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.array import PositArray
+from repro_torch.core.array import (PositArray, PositConfigMismatchError,
+                                    is_float_dtype, is_int_dtype, result_cfg)
 from repro_torch.core.types import PositConfig
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import posit_codec as _codec
+from repro_torch.kernels import posit_elementwise as _ew
 from repro_torch.kernels import posit_gemm as _gemm
 
 # name -> (kernel wrapper, plain version); wrappers count `.launches`,
@@ -27,6 +34,9 @@ KERNELS = {
                            _fa.paged_flash_decode_plain),
     "paged_flash_prefill": (_fa.paged_flash_prefill,
                             _fa.paged_flash_prefill_plain),
+    "elementwise": (_ew.elementwise, _ew.elementwise_plain),
+    "divide": (_ew.divide, _ew.divide_plain),
+    "posit_gemm": (_gemm.posit_gemm, _gemm.posit_gemm_plain),
 }
 
 
@@ -45,20 +55,28 @@ def plain_counts() -> dict[str, int]:
 
 
 def _split(x, cfg: PositConfig | None):
+    """(operand, explicit cfg) -> (raw tensor, cfg or None, was_posit)."""
     if isinstance(x, PositArray):
         if cfg is not None and cfg != x.cfg:
-            raise ValueError(f"explicit cfg {cfg} contradicts {x.cfg}")
-        return x.bits, x.cfg
+            raise PositConfigMismatchError(
+                f"explicit cfg {cfg} contradicts operand format {x.cfg}")
+        return x.bits, x.cfg, True
+    return x, cfg, False
+
+
+def _posit(x, cfg: PositConfig | None):
+    """A posit payload operand -> (bits, cfg); the format is required."""
+    bits, cfg, _ = _split(x, cfg)
     if cfg is None:
         raise TypeError("posit payload needs a PositArray or an explicit cfg")
-    return x, cfg
+    return bits, cfg
 
 
 def pw_matmul(x: torch.Tensor, w, cfg: PositConfig | None = None, *,
               transpose_b: bool = False) -> torch.Tensor:
     """[..., k] @ posit weight [k, n] -> f32 [..., n] (the linear layer);
     transpose_b: w stored [n, k] (the tied unembedding table)."""
-    bits, cfg = _split(w, cfg)
+    bits, cfg = _posit(w, cfg)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     out = _gemm.pw_gemm(x2, bits, cfg, transpose_b=transpose_b)
@@ -67,7 +85,7 @@ def pw_matmul(x: torch.Tensor, w, cfg: PositConfig | None = None, *,
 
 def decode(p, cfg: PositConfig | None = None) -> torch.Tensor:
     """Posit payload -> f32 values."""
-    bits, cfg = _split(p, cfg)
+    bits, cfg = _posit(p, cfg)
     return _codec.decode_block(bits, cfg)
 
 
@@ -109,3 +127,95 @@ def _unwrap_pages(k_pages, v_pages):
         k_pages.same_format(v_pages)
         return k_pages.bits, v_pages.bits, k_pages.cfg
     return k_pages, v_pages, None
+
+
+# --------------------------------------------------------------------------
+# posit arithmetic (PADD/PSUB/PMUL/PFMADD/PDIV) and the quire GEMM
+# --------------------------------------------------------------------------
+def _resolve_elementwise(op: str, inputs, cfg: PositConfig | None):
+    """PositArray resolution for the elementwise-shaped ops -> (raw tensors
+    broadcast to one shape, cfg, any_posit).  Raw companions of PositArray
+    operands must be payload ints: python scalars and float tensors are
+    values, and consuming them as bit patterns would be silent corruption."""
+    any_posit = any(isinstance(x, PositArray) for x in inputs)
+    if any_posit:
+        cfg = result_cfg(*inputs, cfg=cfg)
+        for x in inputs:
+            if isinstance(x, PositArray):
+                continue
+            dt = getattr(x, "dtype", None)
+            if (isinstance(x, (bool, int, float, complex))
+                    or (dt is not None and is_float_dtype(dt))):
+                raise TypeError(
+                    f"{op}: cannot mix a PositArray with a python scalar or "
+                    f"float array; encode values with pnp.asarray(x, cfg) "
+                    f"or wrap payload bits with pnp.frombits")
+    if cfg is None:
+        raise TypeError(f"{op} needs PositArray inputs or an explicit cfg")
+    raw = [x.bits if isinstance(x, PositArray) else x for x in inputs]
+    dev = next((t.device for t in raw if isinstance(t, torch.Tensor)), None)
+    raw = [t if isinstance(t, torch.Tensor) else torch.as_tensor(t, device=dev)
+           for t in raw]
+    # broadcast here, not in the kernels: they take same-shaped operands
+    shape = torch.broadcast_shapes(*(t.shape for t in raw))
+    return tuple(t.expand(shape) for t in raw), cfg, any_posit
+
+
+def elementwise(op: str, *inputs, cfg: PositConfig | None = None):
+    """PADD/PSUB/PMUL ("add"/"sub"/"mul") or PFMADD ("fma", three operands),
+    lane-wise with broadcasting."""
+    raw, cfg, any_posit = _resolve_elementwise(f"elementwise('{op}')",
+                                               inputs, cfg)
+    out = _ew.elementwise(op, *raw, cfg=cfg)
+    return PositArray(out, cfg) if any_posit else out
+
+
+def divide(a, b, *, cfg: PositConfig | None = None,
+           mode: str = "poly_corrected", nr_rounds: int = 1):
+    """PDIV lane-wise with broadcasting; mode in {"exact", "poly",
+    "poly_corrected", "pacogen"}."""
+    (a, b), cfg, any_posit = _resolve_elementwise("divide", (a, b), cfg)
+    out = _ew.divide(a, b, cfg=cfg, mode=mode, nr_rounds=nr_rounds)
+    return PositArray(out, cfg) if any_posit else out
+
+
+def gemm(a, b, *, cfg_a: PositConfig | None = None,
+         cfg_b: PositConfig | None = None,
+         cfg_out: PositConfig | None = None, out_posit: bool = False,
+         transpose_b: bool = False):
+    """[m, k] @ [k, n] with posit operands decoded in the kernel and an f32
+    accumulator; posit bits of cfg_out (one rounding) when out_posit.  A
+    float operand (cfg None) is an activation and skips the decode."""
+    a, cfg_a, a_posit = _split(a, cfg_a)
+    b, cfg_b, b_posit = _split(b, cfg_b)
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    # cfg-less int operands would be multiplied as integer values: posit
+    # payload bits always need their format
+    for raw, raw_cfg in ((a, cfg_a), (b, cfg_b)):
+        if raw_cfg is None and is_int_dtype(raw.dtype):
+            raise TypeError(
+                "gemm: int payload bits need their format; wrap them with "
+                "pnp.frombits(bits, cfg) or pass cfg_a/cfg_b")
+    if out_posit and cfg_out is None:
+        if cfg_a is not None and cfg_b is not None and cfg_a != cfg_b:
+            raise PositConfigMismatchError(
+                f"mixed-format gemm ({cfg_a} @ {cfg_b}) with out_posit needs "
+                f"an explicit cfg_out")
+        cfg_out = cfg_a if cfg_a is not None else cfg_b
+    if cfg_a is None:
+        a = a.to(torch.float32)
+    if cfg_b is None:
+        b = b.to(torch.float32)
+    if cfg_a is None and cfg_b is not None:
+        # an f32 activation against posit weights is the pw form (its skinny
+        # kernel at M <= 8); posit out is the single rounding of its result
+        out = _gemm.pw_gemm(a, b, cfg_b, transpose_b=transpose_b)
+        if out_posit:
+            out = _codec.encode_block(out, cfg_out)
+    else:
+        out = _gemm.posit_gemm(a, b, cfg_a=cfg_a, cfg_b=cfg_b,
+                               cfg_out=cfg_out if out_posit else None,
+                               out_posit=out_posit, transpose_b=transpose_b)
+    if out_posit and (a_posit or b_posit):
+        return PositArray(out, cfg_out)
+    return out

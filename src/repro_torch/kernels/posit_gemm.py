@@ -1,9 +1,14 @@
-"""K2: f32 activations x posit weights -> f32 (``csrc/posit_gemm.cu``).
+"""K2: the posit GEMM with in-kernel decode (``csrc/posit_gemm.cu``).
 
-Replaces ``repro/kernels/posit_gemm.py::pw_gemm`` (:158; the pallas_call of
-``posit_gemm`` at :139).  A decode step (M = max_seqs rows) is bound by
-reading the weights, a prefill chunk by f32 FFMA; the source picks a
-skinny kernel for M <= 8 and a 64x64-tiled one above it.
+`posit_gemm` replaces ``repro/kernels/posit_gemm.py::posit_gemm`` (:87; its
+pallas_call at :139): posit or f32 operands, decoded to exact f32 as the
+tiles are staged, an f32 accumulator (the quire analogue), and either f32
+out or one RNE rounding to posit bits (`out_posit`: the quire's single
+rounding).  `pw_gemm` is its f32-activation form (``::pw_gemm``, :158), the
+serving path's linear and unembedding: a decode step (M = max_seqs rows)
+is bound by reading the weights, a prefill chunk by f32 FFMA; the source
+picks a skinny kernel for M <= 8 and a 64x64-tiled one above it.
+`transpose_a` (the training backward's dW leg) is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ from repro_torch.kernels import build, ref
 def pw_gemm_plain(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig,
                   transpose_b: bool = False) -> torch.Tensor:
     pw_gemm_plain.calls += 1
-    return ref.posit_gemm_ref(x, w_bits, cfg, transpose_b)
+    return ref.posit_gemm_ref(x, w_bits, cfg_a=None, cfg_b=cfg,
+                              transpose_b=transpose_b)
 
 
 def pw_gemm(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig, *,
@@ -26,8 +32,9 @@ def pw_gemm(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig, *,
     stored [n, k] and contracted on its last axis, with no transposed copy.
     """
     if transpose_a or out_posit:
-        raise NotImplementedError("pw_gemm: transpose_a and out_posit are "
-                                  "not ported yet")
+        raise NotImplementedError("pw_gemm is the f32-out form: posit bits "
+                                  "out go through posit_gemm(out_posit=True)"
+                                  "; transpose_a is not ported yet")
     if x.device.type == "cpu":
         return pw_gemm_plain(x, w_bits, cfg, transpose_b)
     lib = build.library("posit_gemm")
@@ -58,5 +65,73 @@ def pw_gemm(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig, *,
     return out
 
 
+def posit_gemm_plain(a, b, *, cfg_a: PositConfig | None,
+                     cfg_b: PositConfig | None,
+                     cfg_out: PositConfig | None = None,
+                     out_posit: bool = False,
+                     transpose_b: bool = False) -> torch.Tensor:
+    posit_gemm_plain.calls += 1
+    return ref.posit_gemm_ref(a, b, cfg_a=cfg_a, cfg_b=cfg_b, cfg_out=cfg_out,
+                              out_posit=out_posit, transpose_b=transpose_b)
+
+
+def _operand(name: str, t: torch.Tensor, cfg: PositConfig | None):
+    """-> (contiguous tensor, dtype code, n, es); float32 when cfg is None,
+    else the format's storage ints."""
+    want = (torch.float32 if cfg is None
+            else getattr(torch, cfg.storage_dtype_name))
+    if cfg is not None and cfg.n > 16:
+        raise NotImplementedError(f"posit_gemm: {cfg}: the kernel covers "
+                                  f"n <= 16")
+    if t.dtype != want:
+        raise TypeError(f"posit_gemm: {name} must be {want} "
+                        f"({cfg or 'float'}), got {t.dtype}")
+    n, es = (cfg.n, cfg.es) if cfg is not None else (0, 0)
+    return t.contiguous(), build.DTYPE_CODE[want], n, es
+
+
+def posit_gemm(a: torch.Tensor, b: torch.Tensor, *,
+               cfg_a: PositConfig | None, cfg_b: PositConfig | None,
+               cfg_out: PositConfig | None = None, out_posit: bool = False,
+               transpose_b: bool = False) -> torch.Tensor:
+    """a [m, k] @ b [k, n] (or b [n, k] contracted on k when transpose_b)
+    with posit operands decoded in the kernel; cfg None means that operand
+    is float32.  Returns the f32 accumulator, or its posit bits of cfg_out
+    (one RNE rounding) when out_posit."""
+    if out_posit and cfg_out is None:
+        raise ValueError("posit_gemm: out_posit needs cfg_out")
+    if a.device.type == "cpu":
+        return posit_gemm_plain(a, b, cfg_a=cfg_a, cfg_b=cfg_b,
+                                cfg_out=cfg_out, out_posit=out_posit,
+                                transpose_b=transpose_b)
+    lib = build.library("posit_gemm")
+    a, dta, na, esa = _operand("a", a, cfg_a)
+    b, dtb, nb, esb = _operand("b", b, cfg_b)
+    build.check_cuda_tensors("posit_gemm", a, b)
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"posit_gemm: operands must be 2-D, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    M, K = a.shape
+    N, K2 = b.shape if transpose_b else b.shape[::-1]
+    if K != K2:
+        raise ValueError(f"posit_gemm: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} (transpose_b={transpose_b}) do "
+                         f"not contract")
+    odt = (getattr(torch, cfg_out.storage_dtype_name) if out_posit
+           else torch.float32)
+    no, eso = (cfg_out.n, cfg_out.es) if out_posit else (0, 0)
+    out = torch.empty((M, N), dtype=odt, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    rc = lib.posit_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                        int(transpose_b), dta, na, esa, dtb, nb, esb,
+                        build.DTYPE_CODE[odt], no, eso, build.stream(a))
+    posit_gemm.launches += 1
+    build.check_launch(rc, "posit_gemm")
+    return out
+
+
 pw_gemm.launches = 0
+posit_gemm.launches = 0
 pw_gemm_plain.calls = 0
+posit_gemm_plain.calls = 0

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of every kernel (the per-kernel golden models).
 
 Each mirrors the arithmetic of the JAX reference's jnp path (the path
-``repro/kernels/ops.py`` dispatches on CPU): ``kernels/ref.py`` for the GEMM
-and the codec, ``serving/paged_kv.py`` for the append and the page gather,
-and ``models/blocks.py::_blockwise_jnp`` for attention.  The kernel modules
+``repro/kernels/ops.py`` dispatches on CPU): ``kernels/ref.py`` for the
+GEMM, the codec and the posit arithmetic, ``serving/paged_kv.py`` for the
+append and the page gather, and ``models/blocks.py::_blockwise_jnp`` for
+attention.  The kernel modules
 call these for CPU tensors; ``chip_smoke.py`` holds each kernel against
 them on the card.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import ops as pops
 from repro_torch.core.convert import f32_to_posit
 from repro_torch.core.decode import decode_to_f32
 from repro_torch.core.types import PositConfig
@@ -31,11 +33,28 @@ def values(buf: torch.Tensor, cfg: PositConfig | None) -> torch.Tensor:
     return decode_to_f32(buf, cfg) if cfg is not None else buf.float()
 
 
-def posit_gemm_ref(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig,
+def posit_gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
+                   cfg_a: PositConfig | None, cfg_b: PositConfig | None,
+                   cfg_out: PositConfig | None = None, out_posit: bool = False,
                    transpose_b: bool = False) -> torch.Tensor:
-    """f32 [m, k] @ decoded posit [k, n] (or [n, k] contracted on k)."""
-    wf = decode_to_f32(w_bits, cfg)
-    return x.float() @ (wf.T if transpose_b else wf)
+    """[m, k] @ [k, n] (or [n, k] contracted on k) -> f32, or posit bits of
+    cfg_out with one rounding when out_posit; a cfg of None means that
+    operand is already float."""
+    af = values(a, cfg_a)
+    bf = values(b, cfg_b)
+    acc = af @ (bf.T if transpose_b else bf)
+    return f32_to_posit(acc, cfg_out) if out_posit else acc
+
+
+def elementwise_ref(op: str, *inputs, cfg: PositConfig) -> torch.Tensor:
+    fn = {"add": pops.padd, "sub": pops.psub, "mul": pops.pmul,
+          "fma": pops.pfma}[op]
+    return fn(*inputs, cfg)
+
+
+def divide_ref(a, b, *, cfg: PositConfig, mode: str = "poly_corrected",
+               nr_rounds: int = 1) -> torch.Tensor:
+    return pops.pdiv(a, b, cfg, mode=mode, nr_rounds=nr_rounds)
 
 
 def paged_append_ref(k, v, k_pages, v_pages, page_table, seq_lens, num_new,

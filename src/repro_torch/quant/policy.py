@@ -2,9 +2,10 @@
 
 The counterpart of ``repro/quant/policy.py``.  `PositPolicy(None, ...)`
 fields disable posit for that class.  Serving consumes pre-quantized
-weights (`quant.ptq.quantize_for_serving`); `posit_cast` is the forward of
-repro's straight-through cast for float weights under a posit policy (the
-port has no training path yet, so no gradient rule).
+weights (`quant.ptq.quantize_for_serving`); `posit_cast` is the round trip
+for float weights under a posit policy, and `posit_cast_ste` the same
+round trip with the straight-through gradient of
+``repro/quant/policy.py::posit_cast_ste`` (exported as `pnp.ste`).
 """
 from __future__ import annotations
 
@@ -34,3 +35,21 @@ def posit_cast(w: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     """f32 -> posit -> f32 round trip: the values posit weights will hold."""
     from repro_torch.kernels import ops
     return ops.decode(ops.encode(w.to(torch.float32), cfg), cfg).to(w.dtype)
+
+
+class _PositCastSTE(torch.autograd.Function):
+    """Forward: f32 -> posit -> f32 through the codec kernels.  Backward:
+    the gradient passes unchanged (the straight-through estimator)."""
+
+    @staticmethod
+    def forward(ctx, w, cfg):
+        return posit_cast(w, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def posit_cast_ste(w: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
+    """The values posit weights will hold, with an identity gradient."""
+    return _PositCastSTE.apply(w, cfg)
