@@ -13,6 +13,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    posit GEMM within the f32 dot-product error bound, the paged attention
    within 1e-4; each kernel also timed beside its plain version, one
    PyTorch library call where one exists, and the card's bound;
+2d. the training kernels against their plain versions on the card: the
+   contiguous flash prefill with its log-sum-exp (K7), the backward's dQ
+   (K8) and dK/dV (K9) passes at the training shape ([8,15,512,64]
+   causal) and an edge shape (128 queries over 512 keys, per-batch
+   q_offset and kv_len, window 64, softcap 30, f32 and posit16 KV), and
+   posit_gemm's transpose_a (the dW leg) at the step's five dW shapes and
+   one posit16 A, each within an f32 error bound derived in the check;
+   their timings beside the plain versions, SDPA and torch.matmul;
 2c. the paper's arithmetic: the elementwise and divide kernels bit-exact
    against their plain versions (every posit8 pair at es 0..4, every
    posit8es2 fma triple, 2^26 seeded posit16 pairs and the edge patterns
@@ -29,6 +37,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the same drain on the CPU, token for token; between them, 8 decode
    steps under torch.profiler (outside the counted run) for the device's
    busy share;
+5. the training main path: (a) one step of smollm-360m at full width and
+   depth 2 (posit16 STE weights), loss and every gradient on the card
+   against the plain versions on the CPU; (b) `train_loop` at full width
+   (32 layers) for 8 steps of 8 x 512 tokens with posit16 STE weights and
+   8 with f32 weights, counters zeroed just before each and read just
+   after (loss curves, step time, tokens/s, peak memory, launches per
+   step, no plain call), then one profiled step for the busy share; (c)
+   at depth 2, 4 steps + checkpoint + 4 resumed steps bit-identical to 8
+   uninterrupted ones;
 4. ``kernels: {...}`` with each kernel's launches on its main path, the
    card's name and power limit, one JSON line of per-kernel numbers, and
    last the contract line ``{"ok": true, "device": {...}}``.
@@ -39,6 +56,7 @@ Float32 matmuls run in full f32 here and in the port (TF32 off).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -56,6 +74,15 @@ ARITH_LANES = 1 << 26    # elementwise/divide lanes: 128 MB per p16 operand
 DIV_MODES = ("exact", "poly", "poly_corrected", "pacogen")
 PACOGEN_NR = {8: 0, 16: 1}   # the paper's Table II NR rounds for the LUT
 LOGITS_TOL = 2e-3        # full-width logits, relative to max |logit|
+# one depth-2 full-width training step, card (kernels) vs CPU (plain): the
+# loss is a mean of log-sum-exps over 960-long f32 dot products (~1e-6
+# relative apart in two summation orders); the gradients sum over up to
+# 49,152 (the unembedding's dX) or 4,096 (every dW) products, whose f32
+# sums in two orders typically differ by ~sqrt(K) 2^-24 ~ 1e-5 of the
+# leaf's scale and at worst by 2 K 2^-24 ~ 6e-3 of its absolute sum.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3    # of each gradient leaf's max |g|
+TRAIN_STEPS = 8
 L2_BYTES = 50 * 2 ** 20
 ITERS = 50               # timed calls per kernel measurement
 SLEEP_CYCLES = 60_000_000  # ~30 ms at H100 clocks: covers host queuing
@@ -144,6 +171,24 @@ def time_ms(torch, fn, arg_sets, iters: int, label: str = "") -> float:
         log(f"[time] note: queuing {label} took {host_ms:.2f} ms, longer "
             f"than the sleep; its number includes host gaps")
     return t0.elapsed_time(t1) / iters
+
+
+def device_time_by_kernel(torch, prof) -> dict[str, list]:
+    """Device time (us) and count of a torch.profiler run by kernel, with
+    template arguments and parameter lists cut from the names, so that the
+    instances of one kernel template add up under one name."""
+    import re
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != cuda:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "")
+        m = re.match(r"(?:void )?([\w:]+)", name)
+        rec = by_name.setdefault(m.group(1) if m else name[:80], [0.0, 0])
+        rec[0] += e.time_range.elapsed_us()
+        rec[1] += 1
+    return by_name
 
 
 def copies_for(nbytes: int, cap: int = 48) -> int:
@@ -527,6 +572,288 @@ class Smoke:
             return sdpa(q, k, v, attn_mask=m, enable_gqa=True)
 
         return time_ms(torch, fn, sets, ITERS, "sdpa")
+
+    # ---- phase 2d: the training kernels against their plain versions -----
+    def _attn_bounds(self, q, k, v, o, lse, do, kl, qo, cfg, causal, window,
+                     softcap):
+        """Per-element bounds on |kernel - plain| for K7-K9, each the f32
+        dot-product bound of `check_gemm` carried through the attention:
+        two f32 sums of the same n products in two orders
+        differ by at most 2 * n * 2^-24 times the sum of their absolute
+        values.  Scores contract D: eps_s = 2 D u (|q| . |k|) scale (plus
+        4 u softcap for tanhf); p = exp(s - lse) is off by p (eps_s + 4 u)
+        (expf's ulps); the output sums Skv keys (Skv + 8: the key sum and
+        the exp, log and divide roundings), dQ sums Skv keys, dK and dV
+        sum the G * Sq query rows of the group.  Both sides are given the
+        same o and lse (the plain forward's) and compute the same delta,
+        so the backward bounds carry no forward error."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        u = 2.0 ** -24
+        B, H, Sq, D = q.shape
+        n_kv, Skv = k.shape[1], k.shape[2]
+        G = H // n_kv
+        scale = D ** -0.5
+        ein = torch.einsum
+        kf, vf = ref.values(k, cfg).abs(), ref.values(v, cfg)
+        s, valid, dcap, _, qg = ref._prefill_scores(q, k, kl, qo, cfg,
+                                                   causal, window, softcap)
+        eps_s = 2 * D * u * ein("bngqd,bnkd->bngqk", qg.abs(), kf) * scale
+        if softcap is not None:
+            eps_s = eps_s + 4 * u * softcap
+        lg = lse.reshape(B, n_kv, G, Sq, 1)
+        p = torch.where(valid, torch.exp(s - lg), 0.0)
+        pe = p * (eps_s + 4 * u)                      # |dp| per key
+        va = vf.abs()
+        og = o.reshape(B, n_kv, G, Sq, D)
+        pv = ein("bngqk,bnkd->bngqd", p, va)
+        out = (ein("bngqk,bnkd->bngqd", pe, va) + og.abs() * pe.sum(-1, True)
+               + 2 * (Skv + 8) * u * pv)
+        lse_b = pe.sum(-1) + 2 * (Skv + 8) * u * (1 + lg[..., 0].abs())
+        dog = do.reshape(B, n_kv, G, Sq, D)
+        dpd = (ein("bngqd,bnkd->bngqk", dog, vf)
+               - (dog * og).sum(-1, keepdim=True)).abs()
+        eps_dp = 2 * D * u * ein("bngqd,bnkd->bngqk", dog.abs(), va)
+        dc = dcap.abs() if dcap is not None else 1.0
+        e_ds = dc * (pe * dpd + p * eps_dp)
+        if softcap is not None:                       # d(1 - t^2) = 2 t dt
+            e_ds = e_ds + p * dpd * 2 * (s / softcap).abs() * eps_s / softcap
+        ds = (p * dpd * dc).abs()
+        dq = scale * (ein("bngqk,bnkd->bngqd", e_ds, kf)
+                      + 2 * Skv * u * ein("bngqk,bnkd->bngqd", ds, kf))
+        qa = qg.abs()
+        dk = scale * (ein("bngqk,bngqd->bnkd", e_ds, qa)
+                      + 2 * G * Sq * u * ein("bngqk,bngqd->bnkd", ds, qa))
+        da = dog.abs()
+        dv = (ein("bngqk,bngqd->bnkd", pe, da)
+              + 2 * G * Sq * u * ein("bngqk,bngqd->bnkd", p, da))
+        return {"out": out.reshape(B, H, Sq, D),
+                "lse": lse_b.reshape(B, H, Sq),
+                "dq": dq.reshape(B, H, Sq, D), "dk": dk, "dv": dv}
+
+    def _within(self, name, label, got, want, tol):
+        """|got - want| <= tol elementwise; returns the worst err/bound."""
+        diff = (got - want).abs()
+        ratio = float((diff / (tol + 1e-30)).max())
+        self.err(name, diff.max())
+        log(f"[{name}] {label}: max|err| {float(diff.max()):.3e}, worst "
+            f"err/bound {ratio:.3e}")
+        if ratio > 1.0:
+            raise AssertionError(f"{name} {label}: error above the stated "
+                                 f"f32 bound")
+        return ratio
+
+    def check_training_kernels(self):
+        """K7-K9 at the training shape ([8,15,512,64] queries over
+        [8,5,512,64] f32 KV, causal) and at an edge shape (128 queries
+        over 512 keys, per-batch q_offset and kv_len < Skv, window 64,
+        softcap 30; f32 and posit16 KV), each against its plain version
+        within the bounds of `_attn_bounds`; rows that see no key must be
+        exactly 0 on both sides.  Then posit_gemm's transpose_a (the dW
+        leg) at the five training dW shapes and one posit16 A, within the
+        f32 dot-product bound over K = 4,096."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import flash_attention as F
+        from repro_torch.kernels import posit_gemm as G
+        from repro_torch.kernels import ref
+        B, H, n_kv, D = 8, 15, 5, 64
+        dev = self.dev
+        worst = 0.0
+        cases = [("train", 512, None, None, None, None, None),
+                 ("edge", 128, [0, 16, 100, 384, 200, 300, 7, 50],
+                  [128, 144, 228, 512, 328, 420, 135, 100], 64, 30.0, None),
+                 ("edge", 128, [0, 16, 100, 384, 200, 300, 7, 50],
+                  [128, 144, 228, 512, 328, 420, 135, 100], 64, 30.0, P16_2)]
+        for tag, Sq, qo, kl, window, softcap, cfg in cases:
+            Skv = 512
+            q, do = self.randn(B, H, Sq, D), self.randn(B, H, Sq, D)
+            k, v = self.randn(B, n_kv, Skv, D), self.randn(B, n_kv, Skv, D)
+            if cfg is not None:
+                k, v = ref.encode_ref(k, cfg), ref.encode_ref(v, cfg)
+            qo = torch.tensor(qo or [0] * B, dtype=torch.int32, device=dev)
+            kl = torch.tensor(kl or [Skv] * B, dtype=torch.int32, device=dev)
+            kw = dict(cfg_kv=cfg, causal=True, window=window, softcap=softcap)
+            label = (f"{tag} Sq={Sq} Skv={Skv} {cfg or 'f32'} KV window="
+                     f"{window} softcap={softcap}")
+            o, lse = F.flash_prefill_contiguous(q, k, v, kl, qo,
+                                                return_lse=True, **kw)
+            po, plse = F.flash_prefill_contiguous_plain(q, k, v, kl, qo,
+                                                        return_lse=True, **kw)
+            dq, dk, dv = F.flash_prefill_bwd_contiguous(q, k, v, po, plse, do,
+                                                        kl, qo, **kw)
+            pdq, pdk, pdv = F.flash_prefill_bwd_contiguous_plain(
+                q, k, v, po, plse, do, kl, qo, **kw)
+            tol = self._attn_bounds(q, k, v, po, plse, do, kl, qo, cfg,
+                                    True, window, softcap)
+            qpos = qo[:, None] + torch.arange(Sq, device=dev)[None, :]
+            lo = torch.clamp(qpos - (window or Skv) + 1, min=0)
+            dead = (lo >= torch.minimum(kl[:, None], qpos + 1))[:, None, :]
+            dead = dead.expand(B, H, Sq)
+            for name, pairs in (
+                    ("flash_prefill", (("out", o, po), ("lse", lse, plse))),
+                    ("flash_prefill_bwd_dq", (("dq", dq, pdq),)),
+                    ("flash_prefill_bwd_dkv", (("dk", dk, pdk),
+                                               ("dv", dv, pdv)))):
+                for what, got, want in pairs:
+                    if got is None:
+                        continue
+                    worst = max(worst, self._within(
+                        name, f"{what} {label}", got, want, tol[what]))
+            n_dead = int(dead.sum())
+            if n_dead and not all(
+                    bool((t[dead] == 0).all())
+                    for t in (o, po, lse, plse, dq, pdq)):
+                raise AssertionError(f"flash prefill {label}: rows that see "
+                                     f"no key are not 0")
+            log(f"[train-kernels] {label}: {n_dead} rows see no key, 0 on "
+                f"both sides")
+            if (pdk is None) != (cfg is not None) or (dk is None) != (
+                    cfg is not None):
+                raise AssertionError("dK/dV must be None exactly for posit "
+                                     "KV")
+            del tol
+        K = 4096
+        for M, N in DW_SHAPES:
+            a, g = self.randn(K, M), self.randn(K, N)
+            got = G.posit_gemm(a, g, cfg_a=None, cfg_b=None, transpose_a=True)
+            want = G.posit_gemm_plain(a, g, cfg_a=None, cfg_b=None,
+                                      transpose_a=True)
+            tol = 2 * K * 2.0 ** -24 * (a.abs().T @ g.abs())
+            worst = max(worst, self._within(
+                "posit_gemm_transpose_a", f"f32 A [K={K}, M={M}] N={N}",
+                got, want, tol))
+            del a, g, got, want, tol
+        a = ref.encode_ref(self.randn(K, 960), P16_2)
+        g = self.randn(K, 320)
+        tol = 2 * K * 2.0 ** -24 * (ref.decode_ref(a, P16_2).abs().T @ g.abs())
+        worst = max(worst, self._within(
+            "posit_gemm_transpose_a", f"posit16 A [K={K}, M=960] N=320",
+            G.posit_gemm(a, g, cfg_a=P16_2, cfg_b=None, transpose_a=True),
+            G.posit_gemm_plain(a, g, cfg_a=P16_2, cfg_b=None,
+                               transpose_a=True), tol))
+        self.details["training_kernels_worst_err_over_bound"] = worst
+
+    def time_training_kernels(self):
+        """K7-K9 at one layer of the training step ([8,15,512,64] causal,
+        f32 KV) and transpose_a at the step's dW shapes (K = 4,096), each
+        beside its plain version, its library call and its bound.  Causal
+        work counts the B H S (S + 1) / 2 visible pairs; per pair the
+        forward does 4 D flops (q.k and p v), dQ 6 D (q.k, dO.v, ds k) and
+        dK/dV 8 D (q.k, dO.v, p dO, ds q)."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as F
+        from repro_torch.kernels import posit_gemm as G
+        B, H, n_kv, S, D = 8, 15, 5, 512, 64
+        dev = self.dev
+        pairs = B * H * S * (S + 1) // 2
+        q_bytes, kv_bytes, row_bytes = 4 * B * H * S * D, 4 * B * n_kv * S * D, \
+            4 * B * H * S
+        kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+        qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+        nset = copies_for(2 * q_bytes + 2 * kv_bytes, 8)
+        sets = []
+        for _ in range(nset):
+            q, do = self.randn(B, H, S, D), self.randn(B, H, S, D)
+            k, v = self.randn(B, n_kv, S, D), self.randn(B, n_kv, S, D)
+            o, lse = F.flash_prefill_contiguous_plain(q, k, v, kl, qo,
+                                                      return_lse=True)
+            delta = (do * o).sum(-1)
+            sets.append((q, k, v, do, lse, delta))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def fwd(q, k, v, *_):
+            return F.flash_prefill_contiguous(q, k, v, kl, qo,
+                                              return_lse=True)
+
+        def fwd_plain(q, k, v, *_):
+            return F.flash_prefill_contiguous_plain(q, k, v, kl, qo,
+                                                    return_lse=True)
+
+        def lib_fwd(q, k, v, *_):
+            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+        def lib_fwd_bwd(q, k, v, do, *_):
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(out, (q, k, v), do)
+
+        def dq(q, k, v, do, lse, delta):
+            return F.flash_prefill_bwd_dq(q, k, v, do, lse, delta, kl, qo)
+
+        def dq_plain(q, k, v, do, lse, delta):
+            return F.flash_prefill_bwd_dq_plain(q, k, v, do, lse, delta, kl,
+                                                qo)
+
+        def dkv(q, k, v, do, lse, delta):
+            return F.flash_prefill_bwd_dkv(q, k, v, do, lse, delta, kl, qo)
+
+        def dkv_plain(q, k, v, do, lse, delta):
+            return F.flash_prefill_bwd_dkv_plain(q, k, v, do, lse, delta, kl,
+                                                 qo)
+
+        it = 20
+        lib_f = time_ms(torch, lib_fwd, sets, it, "sdpa forward")
+        lib_fb = time_ms(torch, lib_fwd_bwd, sets, it, "sdpa forward+backward")
+        lib_b = lib_fb - lib_f
+        shape = "one layer of the training step: [8,15,512,64] causal, f32 KV"
+        for name, fn, plain, flops, nbytes, lib in (
+                ("flash_prefill", fwd, fwd_plain, 4 * D * pairs,
+                 2 * q_bytes + 2 * kv_bytes + row_bytes, lib_f),
+                ("flash_prefill_bwd_dq", dq, dq_plain, 6 * D * pairs,
+                 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, lib_b),
+                ("flash_prefill_bwd_dkv", dkv, dkv_plain, 8 * D * pairs,
+                 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, lib_b)):
+            kern = time_ms(torch, fn, sets, it, name)
+            pl = time_ms(torch, plain, sets, 3, f"{name} plain")
+            b, by = bound(nbytes, flops)
+            self.record(name, shape=shape + (
+                "; library: SDPA's whole backward (dQ, dK, dV together)"
+                if "bwd" in name else "; library: SDPA forward"),
+                ms=kern, plain_ms=pl, bound_ms=b, bound_by=by,
+                library_ms=lib)
+            log(f"[time] {name}: {kern:.4f} ms (plain {pl:.4f}, library "
+                f"{lib:.4f}, bound {b:.4f} by {by}) per layer")
+        del sets
+
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                 "bytes": 0.0, "flops": 0.0}
+        rows = []
+        K = 4096
+        for (M, N), count in zip(DW_SHAPES, DW_PER_STEP):
+            nb = 4 * (K * M + K * N + M * N)
+            gsets = [(self.randn(K, M), self.randn(K, N))
+                     for _ in range(copies_for(nb, 8))]
+            at = f"dW M={M} N={N} K={K}"
+            kern = time_ms(torch, lambda a, g: G.posit_gemm(
+                a, g, cfg_a=None, cfg_b=None, transpose_a=True), gsets,
+                ITERS if M < 10000 else 10, f"transpose_a {at}")
+            pl = time_ms(torch, lambda a, g: G.posit_gemm_plain(
+                a, g, cfg_a=None, cfg_b=None, transpose_a=True), gsets, 5,
+                f"transpose_a plain {at}")
+            lib = time_ms(torch, lambda a, g: torch.matmul(a.T, g), gsets,
+                          ITERS if M < 10000 else 10, f"torch.matmul {at}")
+            flops = 2.0 * M * N * K
+            b, by = bound(nb, flops)
+            rows.append({"M": M, "N": N, "K": K, "per_step": count,
+                         "ms": kern, "plain_ms": pl, "library_ms": lib,
+                         "bound_ms": b, "bound_by": by,
+                         "tflop_per_s": flops / kern / 1e9})
+            log(f"[time] posit_gemm transpose_a {at}: {kern:.4f} ms "
+                f"({flops / kern / 1e9:.1f} TFLOP/s; plain {pl:.4f}, "
+                f"torch.matmul(a.T, g) f32 {lib:.4f}, bound {b:.4f} by {by})")
+            for key, val in (("ms", kern), ("plain_ms", pl),
+                             ("library_ms", lib), ("bytes", nb),
+                             ("flops", flops)):
+                total[key] += count * val
+            del gsets
+        self.details["transpose_a_shapes"] = rows
+        b, by = bound(total["bytes"], total["flops"])
+        self.record("posit_gemm_transpose_a",
+                    shape="the dW GEMMs of one training step: 225 at K=4096 "
+                          "(7 per layer x 32 + the tied table), f32",
+                    ms=total["ms"], plain_ms=total["plain_ms"],
+                    library_ms=total["library_ms"], bound_ms=b, bound_by=by)
 
     # ---- phase 2c: the paper's arithmetic (elementwise, divide, quire GEMM)
     def _pairs_p8(self, dt):
@@ -1075,15 +1402,7 @@ class Smoke:
                 eng.step()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        by_name: dict[str, list] = {}
-        cuda = torch.autograd.DeviceType.CUDA
-        for e in prof.events():
-            if getattr(e, "device_type", None) != cuda:
-                continue
-            name = e.name
-            rec = by_name.setdefault(name, [0.0, 0])
-            rec[0] += e.time_range.elapsed_us()
-            rec[1] += 1
+        by_name = device_time_by_kernel(torch, prof)
         busy_us = sum(v[0] for v in by_name.values())
         launches = sum(v[1] for v in by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
@@ -1095,7 +1414,7 @@ class Smoke:
                      busy_us / plain_wall_us if busy_us else None,
                  "device_launches_per_step": launches / steps,
                  "top_kernels_ms_per_step": {
-                     k[:80]: v[0] / steps / 1e3 for k, v in top}}
+                     k: v[0] / steps / 1e3 for k, v in top}}
         self.details["decode_trace"] = trace
         if not busy_us:
             log("[trace] the profiler saw no device time: busy share not "
@@ -1192,6 +1511,236 @@ class Smoke:
             if not same or pa < 1:
                 raise AssertionError("smoke drain: card and CPU disagree")
 
+    # ---- phase 5: the training path ----------------------------------------
+    def train_whole_step(self):
+        """(a) One step's loss and gradients of smollm-360m at full width,
+        depth 2, posit16 STE weights, from the same seeded init on the same
+        batch (2 x 256 tokens, to keep the CPU side short): the kernels on the card against the plain
+        versions on the CPU, within TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL."""
+        torch = self.torch
+        from repro_torch import configs, tree
+        from repro_torch.core.types import P16_2
+        from repro_torch.data.pipeline import DataConfig, global_batch_at
+        from repro_torch.kernels import ops
+        from repro_torch.models.transformer import init_params
+        from repro_torch.quant.policy import PositPolicy
+        from repro_torch.training.train_step import _compute_grads
+        cfg = dataclasses.replace(configs.get_config(
+            "smollm-360m", policy=PositPolicy(weights=P16_2)), n_layers=2)
+        params = init_params(cfg, seed=0, device="cpu")
+        batch = global_batch_at(0, DataConfig(vocab=cfg.vocab, seq_len=256,
+                                              global_batch=2), device="cpu")
+        gparams, gbatch = self._to(params, self.dev), self._to(batch, self.dev)
+        ops.reset_counters()
+        loss_g, _, grads_g = _compute_grads(gparams, gbatch, cfg, 1)
+        torch.cuda.synchronize()
+        if any(ops.plain_counts().values()):
+            raise AssertionError(f"plain versions ran on the card: "
+                                 f"{ops.plain_counts()}")
+        t0 = time.perf_counter()
+        loss_c, _, grads_c = _compute_grads(params, batch, cfg, 1)
+        cpu_s = time.perf_counter() - t0
+        rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        worst = 0.0
+        for a, b in zip(tree.leaves(grads_g), tree.leaves(grads_c)):
+            a = a.cpu()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError("non-finite gradient on the card")
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+        self.details["train_whole_step"] = {
+            "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "loss_rel_err": rel, "grad_worst_err_over_max": worst,
+            "cpu_s": cpu_s}
+        log(f"[train] depth-2 full-width p16 step, card (kernels) vs CPU "
+            f"(plain, {cpu_s:.1f} s): loss {float(loss_g):.6f} vs "
+            f"{float(loss_c):.6f}, rel err {rel:.3e} (tol "
+            f"{TRAIN_LOSS_RTOL}); worst gradient leaf max|diff|/max|g| "
+            f"{worst:.3e} (tol {TRAIN_GRAD_TOL})")
+        if not (rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+            raise AssertionError("training step: card and CPU disagree")
+
+    def _train_leg(self, cfg, steps, data, opt):
+        """train_loop from seed 0 with every counter zeroed just before
+        and read just after; returns (params, history, launches, plain,
+        peak bytes, wall s)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.training.trainer import train_loop
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        params, _, hist = train_loop(cfg, opt, data, steps, log_every=1,
+                                     verbose=False, device=self.dev, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (params, hist, ops.launch_counts(), ops.plain_counts(),
+                torch.cuda.max_memory_allocated(), wall)
+
+    def train_full(self):
+        """(b) The training main path: `train_loop` on full-width
+        smollm-360m (32 layers, nothing cut), 8 steps of 8 x 512 tokens
+        with posit16 STE weights and 8 with PositPolicy(), same init and
+        batches (the port's run of the p16-vs-f32 loss-gap experiment);
+        after the p16 leg, one more p16 step under torch.profiler for the
+        busy share."""
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.core.types import P16_2
+        from repro_torch.data.pipeline import DataConfig
+        from repro_torch.optim.adamw import OptConfig
+        from repro_torch.quant.policy import PositPolicy
+        steps = TRAIN_STEPS
+        # launch/train.py's settings for --steps 8
+        opt = OptConfig(lr_peak=3e-4, warmup_steps=min(100, steps // 10 + 1),
+                        total_steps=steps)
+        legs = {}
+        for name, pol in (("p16", PositPolicy(weights=P16_2)),
+                          ("f32", PositPolicy())):
+            cfg = configs.get_config("smollm-360m", policy=pol)
+            data = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
+            params, hist, launches, plain, peak, wall = self._train_leg(
+                cfg, steps, data, opt)
+            losses = [h["loss"] for h in hist]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{name}: non-finite loss {losses}")
+            if any(plain.values()):
+                raise AssertionError(f"{name}: plain versions ran on the "
+                                     f"training path: {plain}")
+            L = cfg.n_layers
+            casts = (14 * L + 3) if name == "p16" else 0
+            expect = {"posit_gemm": 4 * (7 * L + 1) * steps,
+                      "posit_gemm_transpose_a": (7 * L + 1) * steps,
+                      "flash_prefill": 2 * L * steps,
+                      "flash_prefill_bwd_dq": L * steps,
+                      "flash_prefill_bwd_dkv": L * steps,
+                      "encode_block": casts * steps,
+                      "decode_block": casts * steps}
+            got = {k: launches[k] for k in expect}
+            if got != expect:
+                raise AssertionError(f"{name}: launch counts {launches} "
+                                     f"differ from the path's {expect}")
+            if any(v for k, v in launches.items() if k not in expect):
+                raise AssertionError(f"{name}: kernels off the training "
+                                     f"path launched: {launches}")
+            step_s = [1.0 / h["steps_per_s"] for h in hist]
+            p50 = float(np.percentile(step_s[1:], 50))
+            tokens = data.global_batch * data.seq_len
+            legs[name] = {
+                "losses": losses, "step_s": step_s, "step_p50_s": p50,
+                "tokens_per_s": tokens / p50, "peak_bytes": peak,
+                "wall_s": wall, "launches": got,
+                "launches_per_step": {k: v // steps for k, v in got.items()},
+                "plain_calls": plain, "params": cfg.param_count()}
+            log(f"[train] {name} leg, smollm-360m full width "
+                f"({cfg.param_count()} params), 8 x 512 tokens/step: losses "
+                f"{[round(x, 4) for x in losses]}; step p50 {p50:.3f} s "
+                f"({tokens / p50:.0f} tok/s; first step {step_s[0]:.3f} s); "
+                f"peak {peak / 2 ** 30:.2f} GiB; {wall:.1f} s wall "
+                f"({self.details['gpu']})")
+            log(f"[train] {name} launches per step "
+                f"{json.dumps(legs[name]['launches_per_step'])}; plain "
+                f"calls {json.dumps(plain)}")
+            if name == "p16":
+                # before the f32 leg, so that its peak holds no p16 params
+                legs[name]["trace"] = self._profile_step(cfg, params, opt,
+                                                         data, p50)
+            del params
+        gap = [a - b for a, b in zip(legs["p16"]["losses"],
+                                     legs["f32"]["losses"])]
+        log(f"[train] p16 - f32 loss gap per step: "
+            f"{[round(x, 5) for x in gap]}")
+        self.details["training"] = dict(legs, gap=gap)
+        return legs
+
+    def _profile_step(self, cfg, params, opt, data, step_p50_s):
+        """One more training step (fresh AdamW state, outside the counted
+        runs, after one unprofiled warm step) under torch.profiler: device
+        time by kernel and the busy share, over the profiled step's own
+        wall time (a lower bound: the profiler adds host cost) and over the
+        unprofiled leg's step p50."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.data.pipeline import global_batch_at
+        from repro_torch.optim.adamw import init_state
+        from repro_torch.training.train_step import make_train_step
+        step_fn = make_train_step(cfg, opt, device=self.dev)
+        state = init_state(params, opt)
+        batch = global_batch_at(TRAIN_STEPS, data, device=self.dev)
+        params, state, _ = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        del params, state
+        by_name = device_time_by_kernel(torch, prof)
+        busy = sum(v[0] for v in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        trace = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                 "device_busy_share": busy / wall_us if busy else None,
+                 "device_busy_share_unprofiled":
+                     busy / 1e6 / step_p50_s if busy else None,
+                 "device_kernels": sum(v[1] for v in by_name.values()),
+                 "top_kernels_ms": {k: v[0] / 1e3 for k, v in top}}
+        if not busy:
+            log("[train] the profiler saw no device time: busy share not "
+                "measured")
+            return trace
+        log(f"[train] one p16 step under torch.profiler: wall "
+            f"{trace['wall_ms']:.1f} ms, device busy "
+            f"{trace['device_busy_ms']:.1f} ms (share "
+            f"{trace['device_busy_share']:.3f}; of the unprofiled step "
+            f"p50: {trace['device_busy_share_unprofiled']:.3f}), "
+            f"{trace['device_kernels']} device kernels "
+            f"({self.details['gpu']})")
+        for k, v in trace["top_kernels_ms"].items():
+            log(f"[train]   {v:9.3f} ms  {k}")
+        return trace
+
+    def train_resume(self, root):
+        """(c) At full width and depth 2 (posit16 STE): 4 steps, a
+        checkpoint, a resume for 4 more must end bit for bit where 8
+        uninterrupted steps do, params and optimizer state."""
+        import shutil
+        torch = self.torch
+        from repro_torch import configs, tree
+        from repro_torch.core.types import P16_2
+        from repro_torch.data.pipeline import DataConfig
+        from repro_torch.optim.adamw import OptConfig
+        from repro_torch.quant.policy import PositPolicy
+        from repro_torch.training.trainer import train_loop
+        cfg = dataclasses.replace(configs.get_config(
+            "smollm-360m", policy=PositPolicy(weights=P16_2)), n_layers=2)
+        data = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
+        opt = OptConfig(lr_peak=3e-4, warmup_steps=1, total_steps=8)
+        ckpt = os.path.join(root, "build", "chip_smoke_ckpt")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        kw = dict(verbose=False, device=self.dev, seed=0, log_every=1)
+        t0 = time.perf_counter()
+        p_full, o_full, _ = train_loop(cfg, opt, data, 8, **kw)
+        train_loop(cfg, opt, data, 4, ckpt_dir=ckpt, **kw)
+        p_res, o_res, hist = train_loop(cfg, opt, data, 8, ckpt_dir=ckpt,
+                                        **kw)
+        torch.cuda.synchronize()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        same = [torch.equal(a, b) for a, b in zip(
+            tree.leaves((p_full, o_full)), tree.leaves((p_res, o_res)))]
+        self.details["train_resume"] = {
+            "leaves": len(same), "bit_identical": all(same),
+            "resumed_steps": [h["step"] for h in hist],
+            "wall_s": time.perf_counter() - t0}
+        log(f"[train] resume at depth 2: 4 steps + checkpoint + 4 resumed "
+            f"steps vs 8 uninterrupted: {sum(same)} of {len(same)} leaves "
+            f"(params and AdamW state) bit-identical")
+        if not all(same) or [h["step"] for h in hist][0] != 4:
+            raise AssertionError("resume is not bit-identical to the "
+                                 "uninterrupted run")
+
     def _to(self, tree, dev):
         if isinstance(tree, dict):
             return {k: self._to(v, dev) for k, v in tree.items()}
@@ -1207,6 +1756,13 @@ GEMM_SHAPES = [("wq/wo", 960, 960, False), ("wk/wv", 960, 320, False),
 GEMM_PER_LAYER = {"wq/wo": 2, "wk/wv": 2, "w_up/w_gate": 2, "w_down": 1}
 # (K, N, transpose_b) of the quire GEMM at smollm-360m's layer shapes
 QUIRE_SHAPES = [(960, 960, False), (960, 2560, False), (2560, 960, False)]
+# (M, N) of the training step's dW GEMMs (transpose_a, K = 8 x 512 tokens),
+# and how many of each one step runs: wq/wo, wk/wv, w_up/w_gate, w_down
+# per layer, the tied table once
+DW_SHAPES = [(960, 960), (960, 320), (960, 2560), (2560, 960), (49152, 960)]
+DW_PER_STEP = [64, 64, 64, 32, 1]
+TRAINING_KERNELS = ("flash_prefill", "flash_prefill_bwd_dq",
+                    "flash_prefill_bwd_dkv", "posit_gemm_transpose_a")
 SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
                    "paged_flash_decode", "paged_flash_prefill")
 
@@ -1229,6 +1785,14 @@ KERNEL_META = {
                "src/repro/kernels/posit_elementwise.py:110"),
     "posit_gemm": ("src/repro_torch/csrc/posit_gemm.cu",
                    "src/repro/kernels/posit_gemm.py:87"),
+    "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_attention.py:332"),
+    "flash_prefill_bwd_dq": ("src/repro_torch/csrc/flash_prefill.cu",
+                             "src/repro/kernels/flash_attention.py:598"),
+    "flash_prefill_bwd_dkv": ("src/repro_torch/csrc/flash_prefill.cu",
+                              "src/repro/kernels/flash_attention.py:626"),
+    "posit_gemm_transpose_a": ("src/repro_torch/csrc/posit_gemm.cu",
+                               "src/repro/kernels/posit_gemm.py:87"),
 }
 
 
@@ -1266,6 +1830,12 @@ def main() -> int:
     s.time_kernels()
     log(f"[phase] kernel timings {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    s.check_training_kernels()
+    torch.cuda.empty_cache()
+    s.time_training_kernels()
+    torch.cuda.empty_cache()
+    log(f"[phase] training kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     s.check_arith()
     s.table2()
     s.check_quire_gemm()
@@ -1284,6 +1854,20 @@ def main() -> int:
     del qparams
     s.check_smoke_drain()
     log(f"[phase] output checks {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s.train_whole_step()
+    log(f"[phase] training step check {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    legs = s.train_full()
+    train_launches = {k: legs["p16"]["launches"][k]
+                      for k in TRAINING_KERNELS}
+    for name, n in train_launches.items():
+        s.record(name, launches=n)
+    log(f"[phase] training main path {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s.train_resume(root)
+    log(f"[phase] training resume {time.perf_counter() - t0:.1f} s")
 
     s.details["timings_with_host_gaps"] = HOST_GAPS
     rows = []
@@ -1300,9 +1884,12 @@ def main() -> int:
             json.dump({"gpu": card, "kernels": rows, **s.details}, f,
                       indent=1)
     # the main paths' own counts: the serving kernels read right after the
-    # counted drain, the arithmetic kernels right after the counted pnp run
+    # counted drain, the arithmetic kernels right after the counted pnp run,
+    # the training kernels right after the counted 8-step p16 run
     log("kernels: " + json.dumps({**s.details["serving"]["launches"],
-                                  **arith_launches}))
+                                  **arith_launches, **train_launches}))
+    log("kernels (training main path, 8 p16 steps): "
+        + json.dumps(legs["p16"]["launches"]))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ with every leaf already turned into numpy by the caller:
 and returns ``{"embed", "ln_f", "layers": [per-layer dict, ...]}`` with
 torch tensors and `PositArray`s on `device`.  Layer
 ``r * P + pos`` of the stack is rep r of pattern position pos.  It never
-sees a JAX object.
+sees a JAX object.  Any tree of the params' structure converts the same
+way: a gradient tree, or the AdamW moments ``m`` and ``v``.
 """
 from __future__ import annotations
 
@@ -57,7 +58,8 @@ def _rep(r):
 
 
 def from_repro(tree: dict, *, device="cuda") -> dict:
-    """Convert a numpy-leaved reference params tree (see module doc)."""
+    """Convert a numpy-leaved reference params-shaped tree (params, their
+    gradients or AdamW moments; see module doc)."""
     dev = resolve_device(device)
     to_torch = _leaf(dev)
     scanned = tree.get("scanned", ())

@@ -8,7 +8,8 @@
 // posit_gemm is the general form: A and B each f32 or posit (int8/int16,
 // any format), f32 out or posit out (out_posit: the accumulator rounded
 // once to cfg_out with posit_encode, the quire's single rounding), and
-// transpose_b.  transpose_a (the training backward) is not ported.
+// transpose_a / transpose_b.  transpose_a is the training backward's dW
+// leg, dW = X^T G: A is stored [K, M] and contracted on its first axis.
 //
 // Bound on an H100.  A decode step (M = max_seqs <= 8 rows) reads every
 // weight once, 2 B per element at posit16, for 2*M flops per element: HBM
@@ -33,7 +34,9 @@
 //     outputs per thread.
 // Each tiled block stages a BM x BK tile of A and a BK x BN tile of B in
 // shared memory; a posit tile is decoded to exact f32 as it is stored, so
-// HBM only sees the narrow ints.  The operand types are the loader
+// HBM only sees the narrow ints.  With transpose_a the stored A already is
+// the [k][m] layout of the shared tile: its loader reads rows of k,
+// coalesced along m, and the FFMA loop is the same.  The operand types are the loader
 // functors of the kernel template: fixed types for the pw form, a
 // warp-uniform switch on the storage type for the general form (it runs in
 // the staging loop, not in the FFMA loop).  For transpose_b the B tile is
@@ -89,7 +92,7 @@ struct AnyOut {                        // f32, or one RNE rounding to posit
 };
 
 template <class LA, class LB, class ST, int BM, int BN, int BK, int TM,
-          int TN, bool TRANSB>
+          int TN, bool TRANSA, bool TRANSB>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_tile_kernel(const void* __restrict__ a, const void* __restrict__ b,
                  void* __restrict__ out, int M, int N, int K, LA load_a,
@@ -113,11 +116,22 @@ gemm_tile_kernel(const void* __restrict__ a, const void* __restrict__ b,
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int idx = tid; idx < BM * BK; idx += NT) {
-      const int mm = idx / BK, kk = idx % BK;   // a is [M, K], k contiguous
+      int mm, kk;
+      if (TRANSA) {                             // a is [K, M], m contiguous
+        kk = idx / BM;
+        mm = idx % BM;
+      } else {                                  // a is [M, K], k contiguous
+        mm = idx / BK;
+        kk = idx % BK;
+      }
       const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K)
-                       ? load_a(a, static_cast<size_t>(gm) * K + gk)
-                       : 0.0f;
+      float val = 0.0f;
+      if (gm < M && gk < K) {
+        const size_t off = TRANSA ? static_cast<size_t>(gk) * M + gm
+                                  : static_cast<size_t>(gm) * K + gk;
+        val = load_a(a, off);
+      }
+      As[kk][mm] = val;
     }
     for (int idx = tid; idx < BK * BN; idx += NT) {
       int kk, nn;
@@ -237,12 +251,12 @@ pw_gemv_t_kernel(const float* __restrict__ x, const T* __restrict__ w,
 
 constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
 
-template <bool TRANSB, class LA, class LB, class ST>
+template <bool TRANSB, bool TRANSA = false, class LA, class LB, class ST>
 void launch_tiled(const void* a, const void* b, void* out, int M, int N,
                   int K, LA la, LB lb, ST st, cudaStream_t stream) {
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   dim3 block((kBM / kTM) * (kBN / kTN));
-  gemm_tile_kernel<LA, LB, ST, kBM, kBN, kBK, kTM, kTN, TRANSB>
+  gemm_tile_kernel<LA, LB, ST, kBM, kBN, kBK, kTM, kTN, TRANSA, TRANSB>
       <<<grid, block, 0, stream>>>(a, b, out, M, N, K, la, lb, st);
 }
 
@@ -291,10 +305,12 @@ extern "C" int posit_pw_gemm(const void* x, const void* w, void* out, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a [M, K], b [K, N] (or [N, K] when transpose_b), out [M, N]; each of the
-// three is f32 (dtype 0) or posit ints (1: int8, 2: int16) of format (n, es).
+// a [M, K] (or [K, M] when transpose_a), b [K, N] (or [N, K] when
+// transpose_b), out [M, N]; each of the three is f32 (dtype 0) or posit ints
+// (1: int8, 2: int16) of format (n, es).
 extern "C" int posit_gemm(const void* a, const void* b, void* out, int M,
-                          int N, int K, int transpose_b, int dta, int na,
+                          int N, int K, int transpose_a, int transpose_b,
+                          int dta, int na,
                           int esa, int dtb, int nb, int esb, int dto, int no,
                           int eso, void* stream) {
   if (M <= 0 || N <= 0) return 0;
@@ -305,7 +321,11 @@ extern "C" int posit_gemm(const void* a, const void* b, void* out, int M,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AnyIn la{dta, na, esa}, lb{dtb, nb, esb};
   const AnyOut so{dto, no, eso};
-  if (transpose_b)
+  if (transpose_a && transpose_b)
+    launch_tiled<true, true>(a, b, out, M, N, K, la, lb, so, st);
+  else if (transpose_a)
+    launch_tiled<false, true>(a, b, out, M, N, K, la, lb, so, st);
+  else if (transpose_b)
     launch_tiled<true>(a, b, out, M, N, K, la, lb, so, st);
   else
     launch_tiled<false>(a, b, out, M, N, K, la, lb, so, st);

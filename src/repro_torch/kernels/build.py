@@ -40,7 +40,7 @@ SIGNATURES = {
     "posit_gemm": {
         "posit_pw_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "posit_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _P),
+                       _I, _I, _I, _I, _P),
     },
     "posit_elementwise": {
         "posit_elementwise": (_I, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
@@ -53,6 +53,13 @@ SIGNATURES = {
         "posit_paged_prefill": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                                 _P),
+    },
+    "flash_prefill": {
+        "flash_prefill_fwd": (_P,) * 7 + (_I,) * 8 + (_F, _F, _I, _I, _I,
+                                                      _P),
+        "flash_prefill_bwd_dq": (_P,) * 9 + (_I,) * 8 + (_F, _F, _I, _I, _I,
+                                                         _P),
+        "flash_prefill_bwd_dkv": (_P,) * 10 + (_I,) * 8 + (_F, _F, _P),
     },
 }
 

@@ -1,11 +1,16 @@
 """Kernel dispatch for the model, serving and arithmetic code.
 
 The counterpart of ``repro/kernels/ops.py``: `pw_matmul`, `decode`/`encode`,
-the paged attention entry points, and the posit arithmetic of
-``repro.pnp`` (`elementwise`, `divide`, `gemm`).  The device of the
+the paged attention entry points, the contiguous `flash_prefill` and its
+backward `flash_prefill_bwd`, and the posit arithmetic of ``repro.pnp``
+(`elementwise`, `divide`, `gemm`; `gemm` on float operands is
+differentiable, its backward two more GEMM launches).  The device of the
 operands decides: CPU tensors take the plain versions, CUDA tensors the
-kernels, with no fallback between them.  `KERNELS` names every kernel
-wrapper with its plain version, for the launch counters.
+kernels, with no fallback between them, so the reference's
+FORCE_REFERENCE / FORCE_BWD_REFERENCE switches and BWD_FALLBACKS counter
+have no counterpart: `plain_counts()` shows any plain call.  `KERNELS`
+names every kernel wrapper with its plain version, for the launch
+counters.
 
 Operands may be `PositArray`s (the format travels with the array) or raw
 storage ints with an explicit cfg; a posit result computed from
@@ -37,6 +42,12 @@ KERNELS = {
     "elementwise": (_ew.elementwise, _ew.elementwise_plain),
     "divide": (_ew.divide, _ew.divide_plain),
     "posit_gemm": (_gemm.posit_gemm, _gemm.posit_gemm_plain),
+    "flash_prefill": (_fa.flash_prefill_contiguous,
+                      _fa.flash_prefill_contiguous_plain),
+    "flash_prefill_bwd_dq": (_fa.flash_prefill_bwd_dq,
+                             _fa.flash_prefill_bwd_dq_plain),
+    "flash_prefill_bwd_dkv": (_fa.flash_prefill_bwd_dkv,
+                              _fa.flash_prefill_bwd_dkv_plain),
 }
 
 
@@ -44,10 +55,15 @@ def reset_counters() -> None:
     for kernel, plain in KERNELS.values():
         kernel.launches = 0
         plain.calls = 0
+    _gemm.posit_gemm.transpose_a_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: k.launches for name, (k, _) in KERNELS.items()}
+    """Launches per kernel; `posit_gemm_transpose_a` is the part of
+    `posit_gemm`'s count that ran the dW form."""
+    counts = {name: k.launches for name, (k, _) in KERNELS.items()}
+    counts["posit_gemm_transpose_a"] = _gemm.posit_gemm.transpose_a_launches
+    return counts
 
 
 def plain_counts() -> dict[str, int]:
@@ -185,7 +201,9 @@ def gemm(a, b, *, cfg_a: PositConfig | None = None,
          transpose_b: bool = False):
     """[m, k] @ [k, n] with posit operands decoded in the kernel and an f32
     accumulator; posit bits of cfg_out (one rounding) when out_posit.  A
-    float operand (cfg None) is an activation and skips the decode."""
+    float operand (cfg None) is an activation and skips the decode.  The
+    f32 result is differentiable in its float operands (`_GemmMM`); posit
+    operands and posit results carry no gradient."""
     a, cfg_a, a_posit = _split(a, cfg_a)
     b, cfg_b, b_posit = _split(b, cfg_b)
     a, b = torch.as_tensor(a), torch.as_tensor(b)
@@ -206,16 +224,102 @@ def gemm(a, b, *, cfg_a: PositConfig | None = None,
         a = a.to(torch.float32)
     if cfg_b is None:
         b = b.to(torch.float32)
+    if not out_posit:
+        return _GemmMM.apply(a, b, cfg_a, cfg_b, transpose_b)
     if cfg_a is None and cfg_b is not None:
-        # an f32 activation against posit weights is the pw form (its skinny
-        # kernel at M <= 8); posit out is the single rounding of its result
-        out = _gemm.pw_gemm(a, b, cfg_b, transpose_b=transpose_b)
-        if out_posit:
-            out = _codec.encode_block(out, cfg_out)
+        # posit out is the single rounding of the pw form's f32 result
+        out = _codec.encode_block(_gemm_f32(a, b, cfg_a, cfg_b, transpose_b),
+                                  cfg_out)
     else:
         out = _gemm.posit_gemm(a, b, cfg_a=cfg_a, cfg_b=cfg_b,
-                               cfg_out=cfg_out if out_posit else None,
-                               out_posit=out_posit, transpose_b=transpose_b)
-    if out_posit and (a_posit or b_posit):
+                               cfg_out=cfg_out, out_posit=True,
+                               transpose_b=transpose_b)
+    if a_posit or b_posit:
         return PositArray(out, cfg_out)
     return out
+
+
+def _gemm_f32(a, b, cfg_a, cfg_b, transpose_b):
+    if cfg_a is None and cfg_b is not None:
+        # an f32 activation against posit weights is the pw form (its
+        # skinny kernel at M <= 8)
+        return _gemm.pw_gemm(a, b, cfg_b, transpose_b=transpose_b)
+    return _gemm.posit_gemm(a, b, cfg_a=cfg_a, cfg_b=cfg_b,
+                            transpose_b=transpose_b)
+
+
+class _GemmMM(torch.autograd.Function):
+    """The f32-out gemm with the reference's `_gemm_mm` VJP: dA = G @ B^T
+    and dB = A^T @ G through the same posit_gemm kernel (transpose_b /
+    transpose_a index the stored operands, so no transposed copy exists).
+    Posit operands carry no tangent: training crosses the posit boundary
+    through the straight-through estimator."""
+
+    @staticmethod
+    def forward(ctx, a, b, cfg_a, cfg_b, transpose_b):
+        ctx.save_for_backward(a, b)
+        ctx.cfgs = (cfg_a, cfg_b, transpose_b)
+        return _gemm_f32(a, b, cfg_a, cfg_b, transpose_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        cfg_a, cfg_b, transpose_b = ctx.cfgs
+        g = g.to(torch.float32).contiguous()
+        da = db = None
+        if cfg_a is None and ctx.needs_input_grad[0]:
+            # b is [k, n] (or [n, k]): dA contracts g with the other axis
+            da = _gemm.posit_gemm(g, b, cfg_a=None, cfg_b=cfg_b,
+                                  transpose_b=not transpose_b)
+        if cfg_b is None and ctx.needs_input_grad[1]:
+            if transpose_b:
+                db = _gemm.posit_gemm(g, a, cfg_a=None, cfg_b=cfg_a,
+                                      transpose_a=True)
+            else:
+                db = _gemm.posit_gemm(a, g, cfg_a=cfg_a, cfg_b=None,
+                                      transpose_a=True)
+        return da, db, None, None, None
+
+
+# --------------------------------------------------------------------------
+# the contiguous flash prefill (training forward and backward)
+# --------------------------------------------------------------------------
+def per_batch(x, B: int, device) -> torch.Tensor:
+    """A scalar or [B]/[1] length or offset -> [B] int32 on `device`."""
+    t = torch.as_tensor(x, device=device).to(torch.int32).reshape(-1)
+    return t.expand(B).contiguous()
+
+
+def flash_prefill(q, k, v, kv_len, q_offset, *,
+                  cfg_kv: PositConfig | None = None, causal: bool = True,
+                  window=None, softcap=None, return_lse: bool = False):
+    """Fused prefill over a contiguous KV cache (GQA layout): q [B, H, Sq,
+    D] x k/v [B, n_kv, Skv, D] (float, or PositArray / raw posit ints with
+    cfg_kv, decoded tile by tile) -> [B, H, Sq, D] f32, and the row
+    log-sum-exps [B, H, Sq] with return_lse (the backward's residual).
+    kv_len and q_offset are scalars or [B]."""
+    kb, vb, cfg = _unwrap_pages(k, v)
+    cfg = cfg if cfg is not None else cfg_kv
+    B = q.shape[0]
+    return _fa.flash_prefill_contiguous(
+        q.to(torch.float32), kb, vb, per_batch(kv_len, B, q.device),
+        per_batch(q_offset, B, q.device), cfg_kv=cfg, causal=causal,
+        window=window, softcap=softcap, return_lse=return_lse)
+
+
+def flash_prefill_bwd(q, k, v, o, lse, g, kv_len, q_offset, *, n_kv: int,
+                      cfg_kv: PositConfig | None = None, causal: bool = True,
+                      window=None, softcap=None):
+    """(dQ, dK, dV) of flash_prefill through the flash backward kernels
+    (dQ sweeps kv tiles, dK/dV sweep q tiles, scores rebuilt from the
+    saved lse); dK = dV = None for posit KV."""
+    kb, vb, cfg = _unwrap_pages(k, v)
+    cfg = cfg if cfg is not None else cfg_kv
+    if kb.shape[1] != n_kv:
+        raise ValueError(f"flash_prefill_bwd: k has {kb.shape[1]} kv heads, "
+                         f"n_kv={n_kv}")
+    B = q.shape[0]
+    return _fa.flash_prefill_bwd_contiguous(
+        q.to(torch.float32), kb, vb, o, lse, g,
+        per_batch(kv_len, B, q.device), per_batch(q_offset, B, q.device),
+        cfg_kv=cfg, causal=causal, window=window, softcap=softcap)

@@ -8,7 +8,10 @@ rounding).  `pw_gemm` is its f32-activation form (``::pw_gemm``, :158), the
 serving path's linear and unembedding: a decode step (M = max_seqs rows)
 is bound by reading the weights, a prefill chunk by f32 FFMA; the source
 picks a skinny kernel for M <= 8 and a 64x64-tiled one above it.
-`transpose_a` (the training backward's dW leg) is not ported yet.
+`posit_gemm(transpose_a=True)` is the training backward's dW leg, dW =
+X^T G with X stored [k, m]: the tiled kernel's A loader reads the stored
+rows of k, so no transposed copy exists.  `pw_gemm` has no transpose_a,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -32,9 +35,9 @@ def pw_gemm(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig, *,
     stored [n, k] and contracted on its last axis, with no transposed copy.
     """
     if transpose_a or out_posit:
-        raise NotImplementedError("pw_gemm is the f32-out form: posit bits "
-                                  "out go through posit_gemm(out_posit=True)"
-                                  "; transpose_a is not ported yet")
+        raise NotImplementedError("pw_gemm is the f32-out form of the "
+                                  "forward: posit bits out and transpose_a "
+                                  "go through posit_gemm")
     if x.device.type == "cpu":
         return pw_gemm_plain(x, w_bits, cfg, transpose_b)
     lib = build.library("posit_gemm")
@@ -68,11 +71,12 @@ def pw_gemm(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig, *,
 def posit_gemm_plain(a, b, *, cfg_a: PositConfig | None,
                      cfg_b: PositConfig | None,
                      cfg_out: PositConfig | None = None,
-                     out_posit: bool = False,
+                     out_posit: bool = False, transpose_a: bool = False,
                      transpose_b: bool = False) -> torch.Tensor:
     posit_gemm_plain.calls += 1
     return ref.posit_gemm_ref(a, b, cfg_a=cfg_a, cfg_b=cfg_b, cfg_out=cfg_out,
-                              out_posit=out_posit, transpose_b=transpose_b)
+                              out_posit=out_posit, transpose_a=transpose_a,
+                              transpose_b=transpose_b)
 
 
 def _operand(name: str, t: torch.Tensor, cfg: PositConfig | None):
@@ -93,16 +97,19 @@ def _operand(name: str, t: torch.Tensor, cfg: PositConfig | None):
 def posit_gemm(a: torch.Tensor, b: torch.Tensor, *,
                cfg_a: PositConfig | None, cfg_b: PositConfig | None,
                cfg_out: PositConfig | None = None, out_posit: bool = False,
+               transpose_a: bool = False,
                transpose_b: bool = False) -> torch.Tensor:
-    """a [m, k] @ b [k, n] (or b [n, k] contracted on k when transpose_b)
-    with posit operands decoded in the kernel; cfg None means that operand
-    is float32.  Returns the f32 accumulator, or its posit bits of cfg_out
+    """a [m, k] @ b [k, n] with posit operands decoded in the kernel; a
+    stored [k, m] (transpose_a) or b stored [n, k] (transpose_b) is
+    contracted on its k axis in place.  cfg None means that operand is
+    float32.  Returns the f32 accumulator, or its posit bits of cfg_out
     (one RNE rounding) when out_posit."""
     if out_posit and cfg_out is None:
         raise ValueError("posit_gemm: out_posit needs cfg_out")
     if a.device.type == "cpu":
         return posit_gemm_plain(a, b, cfg_a=cfg_a, cfg_b=cfg_b,
                                 cfg_out=cfg_out, out_posit=out_posit,
+                                transpose_a=transpose_a,
                                 transpose_b=transpose_b)
     lib = build.library("posit_gemm")
     a, dta, na, esa = _operand("a", a, cfg_a)
@@ -111,12 +118,12 @@ def posit_gemm(a: torch.Tensor, b: torch.Tensor, *,
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"posit_gemm: operands must be 2-D, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
-    M, K = a.shape
+    M, K = a.shape[::-1] if transpose_a else a.shape
     N, K2 = b.shape if transpose_b else b.shape[::-1]
     if K != K2:
         raise ValueError(f"posit_gemm: a {tuple(a.shape)} and b "
-                         f"{tuple(b.shape)} (transpose_b={transpose_b}) do "
-                         f"not contract")
+                         f"{tuple(b.shape)} (transpose_a={transpose_a}, "
+                         f"transpose_b={transpose_b}) do not contract")
     odt = (getattr(torch, cfg_out.storage_dtype_name) if out_posit
            else torch.float32)
     no, eso = (cfg_out.n, cfg_out.es) if out_posit else (0, 0)
@@ -124,14 +131,17 @@ def posit_gemm(a: torch.Tensor, b: torch.Tensor, *,
     if M == 0 or N == 0:
         return out
     rc = lib.posit_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                        int(transpose_b), dta, na, esa, dtb, nb, esb,
-                        build.DTYPE_CODE[odt], no, eso, build.stream(a))
+                        int(transpose_a), int(transpose_b), dta, na, esa,
+                        dtb, nb, esb, build.DTYPE_CODE[odt], no, eso,
+                        build.stream(a))
     posit_gemm.launches += 1
+    posit_gemm.transpose_a_launches += int(transpose_a)
     build.check_launch(rc, "posit_gemm")
     return out
 
 
 pw_gemm.launches = 0
 posit_gemm.launches = 0
+posit_gemm.transpose_a_launches = 0     # the dW leg, counted in both
 pw_gemm_plain.calls = 0
 posit_gemm_plain.calls = 0

@@ -36,13 +36,15 @@ def values(buf: torch.Tensor, cfg: PositConfig | None) -> torch.Tensor:
 def posit_gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
                    cfg_a: PositConfig | None, cfg_b: PositConfig | None,
                    cfg_out: PositConfig | None = None, out_posit: bool = False,
+                   transpose_a: bool = False,
                    transpose_b: bool = False) -> torch.Tensor:
-    """[m, k] @ [k, n] (or [n, k] contracted on k) -> f32, or posit bits of
-    cfg_out with one rounding when out_posit; a cfg of None means that
+    """[m, k] @ [k, n] -> f32, or posit bits of cfg_out with one rounding
+    when out_posit; a stored [k, m] (transpose_a) or b stored [n, k]
+    (transpose_b) is contracted on its k axis.  A cfg of None means that
     operand is already float."""
     af = values(a, cfg_a)
     bf = values(b, cfg_b)
-    acc = af @ (bf.T if transpose_b else bf)
+    acc = (af.T if transpose_a else af) @ (bf.T if transpose_b else bf)
     return f32_to_posit(acc, cfg_out) if out_posit else acc
 
 
@@ -186,3 +188,101 @@ def paged_prefill_ref(q, k_pages, v_pages, page_table, seq_lens, q_offset, *,
     return blockwise_attention_ref(
         q, k, v, n_kv=k_pages.shape[1], causal=causal, q_off=q_offset,
         window=window, softcap=softcap, kv_len=seq_lens, cfg_kv=cfg_kv)
+
+
+# --------------------------------------------------------------------------
+# contiguous flash prefill: forward with lse, and its backward
+# --------------------------------------------------------------------------
+def _prefill_scores(q, k, kv_len, q_offset, cfg_kv, causal, window, softcap):
+    """Grouped scores of q [B, H, Sq, D] against k [B, n_kv, Skv, D]:
+    (s [B, n_kv, G, Sq, Skv] capped, valid mask broadcastable to s, the
+    softcap chain factor 1 - tanh^2 of the unmasked scores or None, the
+    decoded keys, the grouped queries)."""
+    B, H, Sq, D = q.shape
+    n_kv, Skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, n_kv, H // n_kv, Sq, D)
+    kf = values(k, cfg_kv)
+    s = torch.einsum("bngqd,bnkd->bngqk", qg, kf) * D ** -0.5
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+        dcap = 1.0 - t * t
+    qpos = (q_offset.reshape(-1)[:, None]
+            + torch.arange(Sq, device=q.device)[None, :])       # [B|1, Sq]
+    kpos = torch.arange(Skv, device=q.device)
+    valid = kpos[None, None, :] < kv_len.reshape(-1)[:, None, None]
+    if causal:
+        valid = valid & (qpos[:, :, None] >= kpos[None, None, :])
+    if window is not None:
+        valid = valid & (qpos[:, :, None] - kpos[None, None, :] < window)
+    return s, valid[:, None, None], dcap, kf, qg
+
+
+def flash_prefill_ref(q, k, v, kv_len, q_offset, *,
+                      cfg_kv: PositConfig | None = None, causal=True,
+                      window=None, softcap=None, return_lse=False):
+    """q [B, H, Sq, D] f32 over a contiguous k/v [B, n_kv, Skv, D] (f32,
+    or posit ints of cfg_kv) -> out [B, H, Sq, D] f32, and lse [B, H, Sq]
+    = m + log(l) when return_lse.  kv_len and q_offset are [B] (or [1])
+    ints: row r sits at q_offset + r and sees kpos < kv_len, kpos <= qpos
+    when causal, qpos - kpos < window.  A row that sees no key gets out =
+    0 and lse = 0, as the kernel gives them (the reference's -1e30 masking
+    averages the masked values there instead)."""
+    B, H, Sq, D = q.shape
+    s, valid, _, _, _ = _prefill_scores(q, k, kv_len, q_offset, cfg_kv,
+                                        causal, window, softcap)
+    vf = values(v, cfg_kv)
+    any_key = valid.any(dim=-1, keepdim=True)
+    m = torch.where(valid, s, float("-inf")).amax(dim=-1, keepdim=True)
+    m = torch.where(any_key, m, 0.0)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bngqk,bnkd->bngqd", p, vf)
+    out = (out / torch.where(l > 0, l, 1.0)).reshape(B, H, Sq, D)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), 0.0)
+    return out, lse.reshape(B, H, Sq)
+
+
+def flash_prefill_bwd_parts(q, k, v, do, lse, delta, kv_len, q_offset, *,
+                            cfg_kv: PositConfig | None = None, causal=True,
+                            window=None, softcap=None, dq=True, dkv=True):
+    """The flash backward from the saved lse and delta = rowsum(dO * O):
+    p = exp(s - lse) under the forward's masks, ds = p (dO.v - delta) times
+    the softcap chain factor; returns (dq or None, dk or None, dv or
+    None), dk/dv group-summed to [B, n_kv, Skv, D]."""
+    B, H, Sq, D = q.shape
+    n_kv = k.shape[1]
+    G = H // n_kv
+    scale = D ** -0.5
+    s, valid, dcap, kf, qg = _prefill_scores(q, k, kv_len, q_offset, cfg_kv,
+                                             causal, window, softcap)
+    vf = values(v, cfg_kv)
+    p = torch.where(valid, torch.exp(s - lse.float().reshape(
+        B, n_kv, G, Sq, 1)), 0.0)
+    dog = do.float().reshape(B, n_kv, G, Sq, D)
+    dp = torch.einsum("bngqd,bnkd->bngqk", dog, vf)
+    ds = p * (dp - delta.float().reshape(B, n_kv, G, Sq, 1))
+    if dcap is not None:
+        ds = ds * dcap
+    dq_ = dk_ = dv_ = None
+    if dq:
+        dq_ = (torch.einsum("bngqk,bnkd->bngqd", ds, kf)
+               * scale).reshape(B, H, Sq, D)
+    if dkv:
+        dk_ = torch.einsum("bngqk,bngqd->bnkd", ds, qg) * scale
+        dv_ = torch.einsum("bngqk,bngqd->bnkd", p, dog)
+    return dq_, dk_, dv_
+
+
+def flash_prefill_bwd_ref(q, k, v, o, lse, do, kv_len, q_offset, *,
+                          cfg_kv: PositConfig | None = None, causal=True,
+                          window=None, softcap=None):
+    """(dq, dk, dv) of flash_prefill_ref; dk = dv = None for posit KV
+    (storage ints carry no gradient)."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return flash_prefill_bwd_parts(
+        q, k, v, do, lse, delta, kv_len, q_offset, cfg_kv=cfg_kv,
+        causal=causal, window=window, softcap=softcap, dkv=cfg_kv is None)

@@ -1,13 +1,17 @@
 """Transformer building blocks on torch tensors (params are nested dicts).
 
-The counterpart of ``repro/models/blocks.py`` for the serving path:
-`rms_norm`, `linear`, `rope`, the paged branch of `attention_block`, the
-SwiGLU `mlp_block`, `embed` and `unembed`.  The plain attention (the
-mirror of the reference's ``_blockwise_jnp``) lives beside the other
-plain versions, in `kernels.ref.blockwise_attention_ref`.  Activations
-are float32.
+The counterpart of ``repro/models/blocks.py`` for serving and training:
+`rms_norm`, `linear`, `rope`, `blockwise_attention`, `attention_block`
+(its paged branch and its no-cache training branch), the SwiGLU
+`mlp_block`, `embed` and `unembed`.  The plain attention (the mirror of
+the reference's ``_blockwise_jnp``) lives beside the other plain
+versions, in `kernels.ref`.  Activations are float32.
 Posit weights arrive as `PositArray` (from `quant.ptq`) and go through the
 posit GEMM; posit KV pages are decoded inside the attention kernels.
+Float weights under a posit policy pass through `posit_cast_ste` (the
+forward sees the posit values, the gradient passes straight through) and
+then the differentiable `ops.gemm`, whose backward runs the dX and dW
+GEMM kernels.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 
 from repro_torch.core.array import PositArray
 from repro_torch.kernels import ops
-from repro_torch.quant.policy import PositPolicy, posit_cast
+from repro_torch.quant.policy import PositPolicy, posit_cast_ste
 
 Params = dict[str, Any]
 
@@ -70,8 +74,10 @@ def linear(x: torch.Tensor, p: Params,
     if isinstance(w, PositArray):
         return ops.pw_matmul(x, w).to(x.dtype)
     if policy is not None and policy.weights is not None:
-        w = posit_cast(w, policy.weights)
-    return torch.matmul(x, w)
+        w = posit_cast_ste(w, policy.weights)
+    lead = x.shape[:-1]
+    y = ops.gemm(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -88,15 +94,70 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+class _FusedPrefill(torch.autograd.Function):
+    """The fused prefill forward with the flash backward kernels as its
+    gradient (the reference's `_fused_prefill` custom_vjp): the forward
+    saves (o, lse), the backward rebuilds the scores tile by tile, so
+    nothing score-shaped is kept.  Posit KV and the int lengths carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, q_off, static):
+        cfg_kv, n_kv, causal, window, softcap = static
+        need = any(ctx.needs_input_grad[:3])
+        res = ops.flash_prefill(q, k, v, kv_len, q_off, cfg_kv=cfg_kv,
+                                causal=causal, window=window, softcap=softcap,
+                                return_lse=need)
+        if not need:
+            return res
+        out, lse = res
+        ctx.save_for_backward(q, k, v, out, lse, kv_len, q_off)
+        ctx.static = static
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse, kv_len, q_off = ctx.saved_tensors
+        cfg_kv, n_kv, causal, window, softcap = ctx.static
+        dq, dk, dv = ops.flash_prefill_bwd(
+            q, k, v, o, lse, g, kv_len, q_off, n_kv=n_kv, cfg_kv=cfg_kv,
+            causal=causal, window=window, softcap=softcap)
+        if not k.dtype.is_floating_point:
+            dk = dv = None
+        return dq, dk, dv, None, None, None
+
+
+def blockwise_attention(q, k, v, *, n_kv: int, causal: bool, q_offset=0,
+                        window=None, softcap=None, kv_len=None):
+    """GQA attention of q [B, H, Sq, D] over a contiguous k/v [B, n_kv,
+    Skv, D] (float, or PositArray decoded in the kernel) through the fused
+    prefill kernel, differentiable through the flash backward kernels.
+    q_offset and kv_len (default Skv) are scalars or per-sequence [B].
+    The reference takes its two-pass decode form for Sq == 1; the prefill
+    kernel computes the same function there, so every Sq takes it."""
+    cfg_kv = None
+    if isinstance(k, PositArray):
+        k.same_format(v)
+        cfg_kv, k, v = k.cfg, k.bits, v.bits
+    B = q.shape[0]
+    dev = q.device
+    kl = ops.per_batch(k.shape[2] if kv_len is None else kv_len, B, dev)
+    qo = ops.per_batch(q_offset, B, dev)
+    static = (cfg_kv, n_kv, causal, window, softcap)
+    return _FusedPrefill.apply(q.to(torch.float32), k, v, kl, qo, static)
+
+
 def attention_block(x, p: Params, *, n_heads: int, n_kv: int, head_dim: int,
                     positions, policy: PositPolicy, causal: bool = True,
-                    window=None, rope_theta: float = 10000.0, kv_cache,
+                    window=None, rope_theta: float = 10000.0, kv_cache=None,
                     softcap=None):
-    """Returns (out, new_kv_cache) over a paged cache dict (see
-    serving.paged_kv): append this step's K/V, then attend."""
+    """Returns (out, new_kv_cache).  kv_cache: a paged cache dict (see
+    serving.paged_kv: append this step's K/V, then attend), or None (the
+    training forward: attend over this call's own K/V, new_kv_cache
+    None)."""
     from repro_torch.serving.paged_kv import (is_paged, paged_append_kv,
                                               paged_attention)
-    if not is_paged(kv_cache):
+    if kv_cache is not None and not is_paged(kv_cache):
         raise NotImplementedError("attention_block serves through a paged "
                                   "cache; the dense cache is not ported")
     B, S, _ = x.shape
@@ -108,10 +169,17 @@ def attention_block(x, p: Params, *, n_heads: int, n_kv: int, head_dim: int,
     k = rope(k.transpose(1, 2), positions[:, None, :], rope_theta)
     v = v.transpose(1, 2)
 
-    q_offset = kv_cache["seq_lens"]
-    new_cache = paged_append_kv(kv_cache, k, v)
-    out = paged_attention(q, new_cache, n_kv=n_kv, causal=causal,
-                          q_offset=q_offset, window=window, softcap=softcap)
+    if kv_cache is None:
+        out = blockwise_attention(q, k, v, n_kv=n_kv, causal=causal,
+                                  q_offset=k.shape[2] - S, window=window,
+                                  softcap=softcap)
+        new_cache = None
+    else:
+        q_offset = kv_cache["seq_lens"]
+        new_cache = paged_append_kv(kv_cache, k, v)
+        out = paged_attention(q, new_cache, n_kv=n_kv, causal=causal,
+                              q_offset=q_offset, window=window,
+                              softcap=softcap)
     out = out.transpose(1, 2).reshape(B, S, n_heads * head_dim)
     return linear(out, p["wo"], policy), new_cache
 
@@ -129,8 +197,9 @@ def embed(tokens: torch.Tensor, p: Params, policy: PositPolicy):
     if isinstance(t, PositArray):
         return t[tokens.long()].to_f32()       # gather bits, then decode
     if policy is not None and policy.weights is not None:
-        t = posit_cast(t, policy.weights)
-    return t[tokens.long()]
+        t = posit_cast_ste(t, policy.weights)
+    # a row gather whose gradient is a sorted (deterministic) row sum
+    return torch.nn.functional.embedding(tokens.long(), t)
 
 
 def unembed(h: torch.Tensor, p: Params, policy: PositPolicy | None):
@@ -140,5 +209,8 @@ def unembed(h: torch.Tensor, p: Params, policy: PositPolicy | None):
     if isinstance(t, PositArray):
         return ops.pw_matmul(h, t, transpose_b=True)
     if policy is not None and policy.weights is not None:
-        t = posit_cast(t, policy.weights)
-    return torch.matmul(h.to(torch.float32), t.T)
+        t = posit_cast_ste(t, policy.weights)
+    lead = h.shape[:-1]
+    out = ops.gemm(h.reshape(-1, h.shape[-1]).to(torch.float32), t,
+                   transpose_b=True)
+    return out.reshape(*lead, t.shape[0])

@@ -77,3 +77,40 @@ def test_cuda_requests_raise_without_a_gpu():
             call()
     assert sum(ops.plain_counts().values()) == 0
     assert sum(ops.launch_counts().values()) == 0
+
+
+def test_training_entry_points_raise_without_a_gpu():
+    """The training path asks for the card by default: the trainer, the
+    train step and the CLI without --device cpu raise with no GPU, and the
+    flash prefill and its backward on a non-CPU tensor take the kernel
+    path, which raises instead of running the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, global_batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.trainer import train_loop
+
+    cfg = get_smoke("smollm-360m")
+    data = DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    for call in (lambda: train_loop(cfg, OptConfig(), data, 1,
+                                    verbose=False),
+                 lambda: make_train_step(cfg, OptConfig()),
+                 lambda: global_batch_at(0, data),
+                 lambda: launch_train.main(["--arch", "smollm-360m",
+                                            "--smoke", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    ops.reset_counters()
+    q = torch.empty(1, 3, 4, 8, device="meta")
+    k = torch.empty(1, 1, 4, 8, device="meta")
+    for call in (lambda: ops.flash_prefill(q, k, k, 4, 0, return_lse=True),
+                 lambda: ops.flash_prefill_bwd(q, k, k, q, q[..., 0], q, 4,
+                                               0, n_kv=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert sum(ops.plain_counts().values()) == 0
+    assert sum(ops.launch_counts().values()) == 0
