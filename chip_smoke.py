@@ -46,6 +46,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    step, no plain call), then one profiled step for the busy share; (c)
    at depth 2, 4 steps + checkpoint + 4 resumed steps bit-identical to 8
    uninterrupted ones;
+6. the MoE path, olmoe-1b-7b at full width: (a) the grouped posit GEMM
+   (K10; posit16, posit8 and f32 experts, with and without transpose_b)
+   and its dW (K11) against their plain versions within the f32
+   dot-product bound, at a decode step's, a prefill step's and a
+   training step's row counts and at edge layouts (empty groups, one
+   group holding every row, boundaries inside a tile, rows past
+   offsets[E], which must be exactly 0); (b) their timings beside the
+   plain versions, the bound and one torch.matmul per non-empty group;
+   (c) serving all 16 layers from posit16 experts, 16 requests through
+   PagedServingEngine, counters zeroed just before the PTQ and read just
+   after the drain, then a profiled decode window; (d) logits at depth 2
+   on the card against the CPU, and (e) one depth-2 training step against
+   the CPU, both under the route-flip rule (a token whose top-8 set
+   differs between card and CPU must have a CPU logit margin within the
+   router's f32 bound, and what it touched is left out of the
+   comparison); then `train_loop` at depth 4 of 16 for 8 posit16 steps
+   of 8 x 512 tokens (counted, with a profiled step) and one depth-2
+   step repeated from the same state, bit-identical;
 4. ``kernels: {...}`` with each kernel's launches on its main path, the
    card's name and power limit, one JSON line of per-kernel numbers, and
    last the contract line ``{"ok": true, "device": {...}}``.
@@ -56,7 +74,9 @@ Float32 matmuls run in full f32 here and in the port (TF32 off).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -1261,7 +1281,14 @@ class Smoke:
         return {k: launches[k] for k in expect}
 
     # ---- phase 3: the main path ------------------------------------------
-    def serve(self):
+    def serve(self, arch="smollm-360m", key="serving"):
+        """The serving main path of `arch` at full width from the port's
+        seeded init, post-training quantized to posit16 (weights and KV),
+        16 requests (prompts 128..512, 32 new tokens, greedy) through
+        PagedServingEngine(max_seqs=8, page_size=16, prefill_chunk=128),
+        every counter zeroed just before the PTQ and read just after the
+        drain; the launches must match the path's structure
+        (`serving_launches`) and no plain version may run."""
         torch = self.torch
         import numpy as np
         from repro_torch import configs
@@ -1272,10 +1299,10 @@ class Smoke:
         from repro_torch.quant.ptq import quantize_for_serving
         from repro_torch.serving.engine import PagedServingEngine
 
-        cfg = configs.get_config("smollm-360m",
-                                 policy=PositPolicy(weights=P16_2,
-                                                    kv_cache=P16_2))
-        params = init_params(cfg, seed=0, device="cuda")
+        cfg = configs.get_config(arch, policy=PositPolicy(weights=P16_2,
+                                                          kv_cache=P16_2))
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device=self.dev)
         rng = np.random.default_rng(1)
         lens = rng.integers(128, 513, 16)
         reqs = [(rng.integers(0, cfg.vocab, int(n)).astype(np.int32), 32)
@@ -1287,9 +1314,10 @@ class Smoke:
         ops.reset_counters()
         qparams = quantize_for_serving(params, P16_2)
         del params
+        torch.cuda.empty_cache()
         eng = PagedServingEngine(qparams, cfg, max_seqs=8, page_size=16,
                                  prefill_chunk=128, table_width=width,
-                                 device="cuda")
+                                 device=self.dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.run(reqs)
@@ -1303,28 +1331,18 @@ class Smoke:
         bad = [r for r in range(len(reqs))
                if r not in out or len(out[r]) != 32]
         if bad or stats["failed_nar"] or stats["completed"] != len(reqs):
-            raise AssertionError(f"serving: requests {bad} incomplete; "
-                                 f"stats {stats}")
-        missing = [k for k in SERVING_KERNELS if launches[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the main "
-                                 f"path: {missing}")
+            raise AssertionError(f"serving {arch}: requests {bad} "
+                                 f"incomplete; stats {stats}")
         if any(plain.values()):
-            raise AssertionError(f"plain versions ran on the main path: "
+            raise AssertionError(f"serving {arch}: plain versions ran: "
                                  f"{plain}")
-        steps = stats["prefill_steps"] + stats["decode_steps"]
-        gemms = 7 * cfg.n_layers + 1          # 7 per layer + the unembed
-        expect = {"pw_gemm": gemms * steps,
-                  "paged_flash_decode": cfg.n_layers * stats["decode_steps"],
-                  "paged_flash_prefill": cfg.n_layers * stats["prefill_steps"],
-                  "paged_append": cfg.n_layers * steps,
-                  "decode_block": steps, "encode_block": gemms}
-        if {k: launches[k] for k in expect} != expect:
-            raise AssertionError(f"launch counts {launches} differ from "
-                                 f"the path's structure {expect}")
-        launches = {k: launches[k] for k in SERVING_KERNELS}
-        for name, n in launches.items():
-            self.record(name, launches=n)
+        pre, dec = stats["prefill_steps"], stats["decode_steps"]
+        expect, ptq = serving_launches(cfg, pre, dec)
+        got = {k: launches[k] for k in expect}
+        if got != expect or any(v for k, v in launches.items()
+                                if k not in expect):
+            raise AssertionError(f"serving {arch}: launch counts {launches} "
+                                 f"differ from the path's structure {expect}")
 
         def nbytes(tree):
             if isinstance(tree, dict):
@@ -1334,41 +1352,46 @@ class Smoke:
             t = getattr(tree, "bits", tree)
             return t.numel() * t.element_size()
 
+        steps = pre + dec
         n_tok = sum(len(v) for v in out.values())
-        dec = np.asarray(eng.step_times["decode"]) * 1e3
-        pre = np.asarray(eng.step_times["prefill"]) * 1e3
+        d_ms = np.asarray(eng.step_times["decode"]) * 1e3
+        p_ms = np.asarray(eng.step_times["prefill"]) * 1e3
         ttft = np.asarray(list(eng.ttft_s.values())) * 1e3
         serving = {
             "requests": len(reqs), "tokens": n_tok, "drain_s": drain_s,
             "tok_per_s": n_tok / drain_s, "ttft_mean_ms": float(ttft.mean()),
             "ttft_p50_ms": float(np.percentile(ttft, 50)),
-            "decode_step_p50_ms": float(np.percentile(dec, 50)),
-            "decode_step_p90_ms": float(np.percentile(dec, 90)),
-            "prefill_step_p50_ms": float(np.percentile(pre, 50)),
-            "prefill_steps": stats["prefill_steps"],
-            "decode_steps": stats["decode_steps"],
+            "decode_step_p50_ms": float(np.percentile(d_ms, 50)),
+            "decode_step_p90_ms": float(np.percentile(d_ms, 90)),
+            "prefill_step_p50_ms": float(np.percentile(p_ms, 50)),
+            "prefill_steps": pre, "decode_steps": dec,
             "preempted": stats["preempted"],
-            "weights_bytes": nbytes(qparams),
-            "pool_bytes": nbytes(eng.pages), "launches": launches,
+            "weights_bytes": nbytes(qparams), "params": cfg.param_count(),
+            "pool_bytes": nbytes(eng.pages), "launches": got,
+            "launches_per_step": {k: (v - ptq.get(k, 0)) / steps
+                                  for k, v in got.items()},
+            "peak_bytes": torch.cuda.max_memory_allocated(),
             "prompt_lens": [int(n) for n in lens],
         }
-        self.details["serving"] = serving
+        self.details[key] = serving
         card = self.details["gpu"]
-        log(f"[serve] smollm-360m full width, p16 weights + KV, 16 requests "
-            f"(prompts 128..512, max_new 32, greedy), max_seqs=8, page=16, "
-            f"chunk=128 on {card}")
+        log(f"[serve] {cfg.name} full width ({cfg.param_count()} params, "
+            f"{cfg.n_layers} layers), p16 weights + KV, 16 requests (prompts "
+            f"128..512, max_new 32, greedy), max_seqs=8, page=16, chunk=128 "
+            f"on {card}")
         log(f"[serve] {n_tok} tokens in {drain_s:.3f} s = "
             f"{serving['tok_per_s']:.1f} tok/s; mean TTFT "
             f"{serving['ttft_mean_ms']:.1f} ms; decode step p50 "
             f"{serving['decode_step_p50_ms']:.3f} ms; prefill step p50 "
-            f"{serving['prefill_step_p50_ms']:.2f} ms; "
-            f"{stats['prefill_steps']} prefill + {stats['decode_steps']} "
+            f"{serving['prefill_step_p50_ms']:.2f} ms; {pre} prefill + {dec} "
             f"decode steps ({card})")
         log(f"[serve] weights {serving['weights_bytes'] / 1e6:.1f} MB, pool "
-            f"{serving['pool_bytes'] / 1e6:.1f} MB ({card})")
+            f"{serving['pool_bytes'] / 1e6:.1f} MB, peak "
+            f"{serving['peak_bytes'] / 2 ** 30:.2f} GiB; launches per step "
+            f"{json.dumps(serving['launches_per_step'])} ({card})")
         return qparams, cfg, reqs
 
-    def trace_decode(self, qparams, cfg, reqs):
+    def trace_decode(self, qparams, cfg, reqs, key="decode_trace"):
         """Decode steps outside the counted run: 8 slots decoding
         (128-token prompts), 8 steps timed on the host clock and then 8
         more under torch.profiler.  Reports kernel launches per step,
@@ -1415,12 +1438,12 @@ class Smoke:
                  "device_launches_per_step": launches / steps,
                  "top_kernels_ms_per_step": {
                      k: v[0] / steps / 1e3 for k, v in top}}
-        self.details["decode_trace"] = trace
+        self.details[key] = trace
         if not busy_us:
             log("[trace] the profiler saw no device time: busy share not "
                 "measured")
             return
-        log(f"[trace] decode steps under torch.profiler: wall "
+        log(f"[trace] {cfg.name} decode steps under torch.profiler: wall "
             f"{trace['wall_ms_per_step']:.2f} ms/step, device busy "
             f"{trace['device_busy_ms_per_step']:.2f} ms/step (share "
             f"{trace['device_busy_share']:.3f}; of the "
@@ -1578,13 +1601,15 @@ class Smoke:
         return (params, hist, ops.launch_counts(), ops.plain_counts(),
                 torch.cuda.max_memory_allocated(), wall)
 
-    def train_full(self):
-        """(b) The training main path: `train_loop` on full-width
-        smollm-360m (32 layers, nothing cut), 8 steps of 8 x 512 tokens
-        with posit16 STE weights and 8 with PositPolicy(), same init and
-        batches (the port's run of the p16-vs-f32 loss-gap experiment);
-        after the p16 leg, one more p16 step under torch.profiler for the
-        busy share."""
+    def train_full(self, arch="smollm-360m", legs=("p16", "f32"),
+                   n_layers=None, key="training"):
+        """The training main path: `train_loop` on `arch` at full width
+        (n_layers: a cut depth), 8 steps of 8 x 512 tokens per leg, with
+        posit16 STE weights ("p16") and PositPolicy() ("f32"), same init
+        and batches (the port's run of the p16-vs-f32 loss-gap
+        experiment), counters zeroed just before each leg and read just
+        after, the launches held to `training_launches`; after the p16
+        leg, one more step under torch.profiler for the busy share."""
         import numpy as np
         from repro_torch import configs
         from repro_torch.core.types import P16_2
@@ -1595,64 +1620,63 @@ class Smoke:
         # launch/train.py's settings for --steps 8
         opt = OptConfig(lr_peak=3e-4, warmup_steps=min(100, steps // 10 + 1),
                         total_steps=steps)
-        legs = {}
-        for name, pol in (("p16", PositPolicy(weights=P16_2)),
-                          ("f32", PositPolicy())):
-            cfg = configs.get_config("smollm-360m", policy=pol)
+        out = {}
+        for name in legs:
+            pol = PositPolicy(weights=P16_2) if name == "p16" else \
+                PositPolicy()
+            cfg = configs.get_config(arch, policy=pol)
+            if n_layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=n_layers)
             data = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
             params, hist, launches, plain, peak, wall = self._train_leg(
                 cfg, steps, data, opt)
             losses = [h["loss"] for h in hist]
-            if not all(math.isfinite(x) for x in losses):
-                raise AssertionError(f"{name}: non-finite loss {losses}")
+            aux = [h["aux"] for h in hist]
+            if not all(math.isfinite(x) for x in losses + aux):
+                raise AssertionError(f"{arch} {name}: non-finite loss "
+                                     f"{losses}")
             if any(plain.values()):
-                raise AssertionError(f"{name}: plain versions ran on the "
-                                     f"training path: {plain}")
-            L = cfg.n_layers
-            casts = (14 * L + 3) if name == "p16" else 0
-            expect = {"posit_gemm": 4 * (7 * L + 1) * steps,
-                      "posit_gemm_transpose_a": (7 * L + 1) * steps,
-                      "flash_prefill": 2 * L * steps,
-                      "flash_prefill_bwd_dq": L * steps,
-                      "flash_prefill_bwd_dkv": L * steps,
-                      "encode_block": casts * steps,
-                      "decode_block": casts * steps}
+                raise AssertionError(f"{arch} {name}: plain versions ran on "
+                                     f"the training path: {plain}")
+            expect = training_launches(cfg, steps, name == "p16")
             got = {k: launches[k] for k in expect}
-            if got != expect:
-                raise AssertionError(f"{name}: launch counts {launches} "
-                                     f"differ from the path's {expect}")
-            if any(v for k, v in launches.items() if k not in expect):
-                raise AssertionError(f"{name}: kernels off the training "
-                                     f"path launched: {launches}")
+            if got != expect or any(v for k, v in launches.items()
+                                    if k not in expect):
+                raise AssertionError(f"{arch} {name}: launch counts "
+                                     f"{launches} differ from the path's "
+                                     f"{expect}")
             step_s = [1.0 / h["steps_per_s"] for h in hist]
             p50 = float(np.percentile(step_s[1:], 50))
             tokens = data.global_batch * data.seq_len
-            legs[name] = {
-                "losses": losses, "step_s": step_s, "step_p50_s": p50,
+            out[name] = {
+                "layers": cfg.n_layers, "losses": losses, "aux": aux,
+                "step_s": step_s, "step_p50_s": p50,
                 "tokens_per_s": tokens / p50, "peak_bytes": peak,
                 "wall_s": wall, "launches": got,
                 "launches_per_step": {k: v // steps for k, v in got.items()},
                 "plain_calls": plain, "params": cfg.param_count()}
-            log(f"[train] {name} leg, smollm-360m full width "
-                f"({cfg.param_count()} params), 8 x 512 tokens/step: losses "
-                f"{[round(x, 4) for x in losses]}; step p50 {p50:.3f} s "
-                f"({tokens / p50:.0f} tok/s; first step {step_s[0]:.3f} s); "
-                f"peak {peak / 2 ** 30:.2f} GiB; {wall:.1f} s wall "
-                f"({self.details['gpu']})")
+            log(f"[train] {cfg.name} {name} leg, full width, depth "
+                f"{cfg.n_layers} ({cfg.param_count()} params), 8 x 512 "
+                f"tokens/step: losses {[round(x, 4) for x in losses]}"
+                + (f", aux {[round(x, 4) for x in aux]}" if cfg.moe else "")
+                + f"; step p50 {p50:.3f} s ({tokens / p50:.0f} tok/s; first "
+                f"step {step_s[0]:.3f} s); peak {peak / 2 ** 30:.2f} GiB; "
+                f"{wall:.1f} s wall ({self.details['gpu']})")
             log(f"[train] {name} launches per step "
-                f"{json.dumps(legs[name]['launches_per_step'])}; plain "
+                f"{json.dumps(out[name]['launches_per_step'])}; plain "
                 f"calls {json.dumps(plain)}")
             if name == "p16":
                 # before the f32 leg, so that its peak holds no p16 params
-                legs[name]["trace"] = self._profile_step(cfg, params, opt,
-                                                         data, p50)
+                out[name]["trace"] = self._profile_step(cfg, params, opt,
+                                                        data, p50)
             del params
-        gap = [a - b for a, b in zip(legs["p16"]["losses"],
-                                     legs["f32"]["losses"])]
-        log(f"[train] p16 - f32 loss gap per step: "
-            f"{[round(x, 5) for x in gap]}")
-        self.details["training"] = dict(legs, gap=gap)
-        return legs
+        if "f32" in out:
+            out["gap"] = [a - b for a, b in zip(out["p16"]["losses"],
+                                                out["f32"]["losses"])]
+            log(f"[train] p16 - f32 loss gap per step: "
+                f"{[round(x, 5) for x in out['gap']]}")
+        self.details[key] = out
+        return out
 
     def _profile_step(self, cfg, params, opt, data, step_p50_s):
         """One more training step (fresh AdamW state, outside the counted
@@ -1741,6 +1765,483 @@ class Smoke:
             raise AssertionError("resume is not bit-identical to the "
                                  "uninterrupted run")
 
+    # ---- phase 6: the MoE path (olmoe-1b-7b) -------------------------------
+    def _moe_offsets(self, T):
+        """Offsets [E+1] int32 of T tokens, each routed to top-k distinct
+        experts drawn at random (a random router's routing)."""
+        torch = self.torch
+        E, k = MOE_E, MOE_K
+        r = torch.rand((T, E), generator=self.gen, device=self.dev)
+        keys, _ = torch.sort(r.argsort(dim=-1)[:, :k].reshape(-1))
+        return torch.searchsorted(
+            keys, torch.arange(E + 1, device=self.dev)).to(torch.int32)
+
+    def _offsets_of(self, sizes):
+        torch = self.torch
+        return torch.tensor([0] + list(itertools.accumulate(sizes)),
+                            dtype=torch.int32, device=self.dev)
+
+    def _check_grouped(self, label, S, K, N, off, cfg, transpose_b):
+        """K10 against its plain version: w stored [E, K, N] (posit of cfg,
+        or f32), x [S, K] (or [S, N] with transpose_b, the dX form), within
+        the f32 dot-product bound 2 Kc 2^-24 (|x| |w_g|) over the
+        contraction Kc; rows outside every group exactly 0 on both sides."""
+        from repro_torch.kernels import grouped_gemm as GG
+        from repro_torch.kernels import ref
+        E = off.shape[0] - 1
+        w = self.randn(E, K, N, scale=K ** -0.5)
+        if cfg is not None:
+            w = ref.encode_ref(w, cfg)
+        kc = N if transpose_b else K
+        x = self.randn(S, kc)
+        got = GG.posit_grouped_gemm(x, w, off, cfg, transpose_b=transpose_b)
+        want = GG.posit_grouped_gemm_plain(x, w, off, cfg, transpose_b)
+        tol = 2 * kc * 2.0 ** -24 * ref.grouped_matmul_ref(
+            x.abs(), ref.values(w, cfg).abs(), off, transpose_b=transpose_b)
+        _, inb = ref.grouped_row_ids(off, S)
+        out_rows = int((~inb).sum())
+        if out_rows and not (bool((got[~inb] == 0).all())
+                             and bool((want[~inb] == 0).all())):
+            raise AssertionError(f"grouped_gemm {label}: rows outside every "
+                                 f"group are not 0")
+        return self._within("grouped_gemm", f"{label} {cfg or 'f32'} "
+                            f"transpose_b={transpose_b} ({out_rows} rows "
+                            f"outside groups)", got, want, tol)
+
+    def _check_grouped_dw(self, label, S, K, N, off):
+        """K11 against its plain version within 2 n_e 2^-24 (|x|^T |g|) per
+        group of n_e rows; an empty group exactly 0 on both sides."""
+        from repro_torch.kernels import grouped_gemm as GG
+        from repro_torch.kernels import ref
+        x, g = self.randn(S, K), self.randn(S, N)
+        got = GG.posit_grouped_gemm_dw(x, g, off)
+        want = GG.posit_grouped_gemm_dw_plain(x, g, off)
+        n_e = (off[1:] - off[:-1]).clamp_min(0).float()
+        tol = 2 * n_e[:, None, None] * 2.0 ** -24 * ref.grouped_matmul_dw_ref(
+            x.abs(), g.abs(), off)
+        empty = n_e == 0
+        if bool(empty.any()) and not (bool((got[empty] == 0).all())
+                                      and bool((want[empty] == 0).all())):
+            raise AssertionError(f"grouped_gemm_dw {label}: empty groups "
+                                 f"are not 0")
+        return self._within("grouped_gemm_dw", f"{label} ({int(empty.sum())}"
+                            f" empty groups)", got, want, tol)
+
+    def check_moe_kernels(self):
+        """(a) K10 with posit16, posit8 and f32 experts, with and without
+        transpose_b, and K11, at olmoe-1b-7b's widths (64 experts, 2048 x
+        1024 up/gate and 1024 x 2048 down tables) and the path's row counts
+        (a decode step's 8 x 8 pairs, a prefill step's 1,024 x 8, a training
+        step's 4,096 x 8, randomly routed); then the edge layouts at 500
+        rows: many empty groups, one group holding every row, boundaries
+        inside a 64-row chunk, and rows past offsets[E]."""
+        from repro_torch.core.types import P8_2, P16_2
+        worst = 0.0
+        for tag, T in (("decode", 8), ("prefill", 1024), ("training", 4096)):
+            off = self._moe_offsets(T)
+            S = T * MOE_K
+            for name, K, N in MOE_SHAPES:
+                for cfg in (P16_2, P8_2, None):
+                    for tb in (False, True):
+                        worst = max(worst, self._check_grouped(
+                            f"{tag} S={S} {name}", S, K, N, off, cfg, tb))
+                if tag != "decode":
+                    worst = max(worst, self._check_grouped_dw(
+                        f"{tag} S={S} {name}", S, K, N, off))
+        E, S = MOE_E, 500
+        chunks = [1, 63, 65, 3, 127, 0, 70, 2, 33, 64, 1]
+        edges = {
+            "many empty groups": [0] * 10 + [7] + [0] * 30 + [200, 0, 90] +
+                                 [0] * 19 + [203],
+            "one group holds every row": [0] * 17 + [S] + [0] * (E - 18),
+            "boundaries inside 64-row chunks":
+                chunks + [0] * (E - len(chunks)),
+            "rows past offsets[E]": [3] * (E - 1) + [0],
+        }
+        for label, sizes in edges.items():
+            off = self._offsets_of(sizes)
+            for cfg in (P16_2, None):
+                for tb in (False, True):
+                    worst = max(worst, self._check_grouped(
+                        f"edge: {label}", S, 2048, 1024, off, cfg, tb))
+            worst = max(worst, self._check_grouped_dw(
+                f"edge: {label}", S, 2048, 1024, off))
+        self.details["moe_kernels_worst_err_over_bound"] = worst
+
+    def time_moe_kernels(self):
+        """(b) K10 and K11 at the path's shapes, beside the plain versions,
+        the bound and a library yardstick: no single PyTorch call computes
+        an f32 grouped product, so the yardstick is one torch.matmul per
+        non-empty group on the decoded f32 tables (E calls), summed.  The
+        bound at decode is bytes (the active experts' posit16 tables, x and
+        out); elsewhere 2 S K N over f32 FFMA."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import grouped_gemm as GG
+        from repro_torch.kernels import ref
+        rows = []
+        E = MOE_E
+        for tag, T, cfg in (("decode", 8, P16_2), ("prefill", 1024, P16_2),
+                            ("training", 4096, None)):
+            off = self._moe_offsets(T)
+            bounds = [(g, a, b) for g, (a, b) in enumerate(
+                ref._group_bounds(off, T * MOE_K)) if b > a]
+            active = len(bounds)
+            S = T * MOE_K
+            esize = 4 if cfg is None else 2
+            forms = [("forward", False, "grouped_gemm")]
+            if tag == "training":
+                forms += [("dX (transpose_b)", True, "grouped_gemm"),
+                          ("dW", None, "grouped_gemm_dw")]
+            for name, K, N in MOE_SHAPES:
+                ws = [self.randn(E, K, N, scale=K ** -0.5) for _ in range(2)]
+                if cfg is not None:
+                    ws = [ref.encode_ref(w, cfg) for w in ws]
+                wfs = [ref.values(w, cfg) for w in ws]
+                for form, tb, kern_name in forms:
+                    kc, nout = (N, K) if tb else (K, N)
+                    x = self.randn(S, kc)
+                    at = f"{tag} S={S} {name} {form}"
+                    if tb is None:                     # K11: dW of the table
+                        g = self.randn(S, N)
+                        xs = [(x, g), (self.randn(S, K), self.randn(S, N))]
+                        kern = time_ms(torch, lambda a, b: GG.
+                                       posit_grouped_gemm_dw(a, b, off), xs,
+                                       20, f"grouped_gemm_dw {at}")
+                        plain = time_ms(torch, lambda a, b: GG.
+                                        posit_grouped_gemm_dw_plain(a, b, off),
+                                        xs, 3, f"grouped_gemm_dw_plain {at}")
+                        lib = time_ms(torch, lambda a, b: [
+                            torch.matmul(a[s:t].T, b[s:t])
+                            for _, s, t in bounds], xs, 5,
+                            f"torch.matmul x E {at}")
+                        nbytes = 4 * (S * K + S * N + E * K * N)
+                    else:
+                        sets = [(w, wf) for w, wf in zip(ws, wfs)]
+                        kern = time_ms(torch, lambda w, wf: GG.
+                                       posit_grouped_gemm(x, w, off, cfg,
+                                                          transpose_b=tb),
+                                       sets, 20, f"grouped_gemm {at}")
+                        plain = time_ms(torch, lambda w, wf: GG.
+                                        posit_grouped_gemm_plain(x, w, off,
+                                                                 cfg, tb),
+                                        sets, 3, f"grouped_gemm_plain {at}")
+                        lib = time_ms(torch, lambda w, wf: [
+                            torch.matmul(x[s:t], wf[e].T if tb else wf[e])
+                            for e, s, t in bounds], sets, 5,
+                            f"torch.matmul x E {at}")
+                        nbytes = 4 * S * kc + active * K * N * esize \
+                            + 4 * S * nout
+                    flops = 2.0 * S * K * N
+                    b, by = bound(nbytes, flops)
+                    rows.append({"use": tag, "table": name, "form": form,
+                                 "kernel": kern_name, "S": S, "K": K, "N": N,
+                                 "active_experts": active,
+                                 "weights": str(cfg or "f32"), "ms": kern,
+                                 "plain_ms": plain, "library_ms": lib,
+                                 "bound_ms": b, "bound_by": by,
+                                 "tflop_per_s": flops / kern / 1e9})
+                    log(f"[time] {kern_name} {at} ({cfg or 'f32'}, {active} "
+                        f"active experts): {kern:.4f} ms ({flops / kern / 1e9:.1f}"
+                        f" TFLOP/s; plain {plain:.4f}, torch.matmul x "
+                        f"{active} {lib:.4f}, bound {b:.4f} by {by})")
+                del ws, wfs
+        self.details["moe_kernel_shapes"] = rows
+
+        def total(pred, per):
+            """Sum of `per[table] x row` over the rows matching pred."""
+            acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "bound_ms": 0.0}
+            for r in rows:
+                if pred(r):
+                    for key in acc:
+                        acc[key] += per[r["table"]] * r[key]
+            return acc
+
+        step = total(lambda r: r["use"] == "decode",
+                     {"up/gate": 2 * 16, "down": 16})
+        self.record("grouped_gemm",
+                    shape="one decode step of olmoe-1b-7b: 48 grouped GEMMs "
+                          "(16 layers x up, gate, down), 64 rows over 64 "
+                          "experts, p16 experts, cold; bound by bytes, summed "
+                          "per GEMM; library: torch.matmul per non-empty "
+                          "group on f32 tables", bound_by="bytes", **step)
+        dw = total(lambda r: r["kernel"] == "grouped_gemm_dw",
+                   {"up/gate": 2, "down": 1})
+        self.record("grouped_gemm_dw",
+                    shape="one training layer's three expert dW (S=32,768 "
+                          "rows, 8 x 512 tokens x top-8); bound by operations, "
+                          "summed; library: torch.matmul(x.T, g) per "
+                          "non-empty group", bound_by="operations", **dw)
+
+    @contextlib.contextmanager
+    def _recording_routes(self):
+        """Record every MoE routing decision made inside the block: the
+        router's input and weights, the softmax, the top-k ids and the
+        capacity mask, per `moe._route` call, on the host."""
+        from repro_torch.models import moe
+        orig, calls = moe._route, []
+
+        def recording(xt, p, **kw):
+            out = orig(xt, p, **kw)
+            probs, gate_idx, _, _, keep, _ = out
+            calls.append({"x": xt.detach().float().cpu(),
+                          "router": p["router"].detach().float().cpu(),
+                          "probs": probs.detach().cpu(),
+                          "idx": gate_idx.cpu(), "keep": keep.cpu()})
+            return out
+
+        moe._route = recording
+        try:
+            yield calls
+        finally:
+            moe._route = orig
+
+    def _route_flips(self, card, cpu, wcfg):
+        """Tokens whose top-k expert sets differ between the card's and the
+        CPU's routing of the same call.  A flip is excused when, for every
+        swapped pair (e_in chosen by the CPU only, e_out by the card only),
+        the CPU's logit margin l_in - l_out lies within the router's f32
+        bound: 2 d 2^-24 (|x| . |w_e|) per logit for the two summation
+        orders, plus |x_card - x_cpu| . |w_e| for the input the layer
+        received, for both experts.  Returns (flips: per flipped token the
+        CPU's p_k - p_k+1, the worst margin over its bound and whether it
+        is excused; per-call masks [T] of the flipped tokens)."""
+        from repro_torch.quant.policy import posit_cast
+        flips, masks = [], []
+        for i, (c, h) in enumerate(zip(card, cpu)):
+            E = h["probs"].shape[-1]
+            k = h["idx"].shape[-1]
+            ic = c["idx"].reshape(-1, k)
+            ih = h["idx"].reshape(-1, k)
+            diff = (ic.sort(-1).values != ih.sort(-1).values).any(-1)
+            masks.append(diff)
+            if not bool(diff.any()):
+                continue
+            d = h["x"].shape[-1]
+            xh, xc = h["x"].reshape(-1, d), c["x"].reshape(-1, d)
+            w = h["router"]
+            if wcfg is not None:
+                w = posit_cast(w, wcfg)
+            lp = h["probs"].reshape(-1, E).double().log()
+            for t in diff.nonzero().flatten().tolist():
+                eb = (2 * d * 2.0 ** -24 * (xh[t].abs() @ w.abs())
+                      + (xc[t] - xh[t]).abs() @ w.abs()).double()
+                cin = set(ih[t].tolist()) - set(ic[t].tolist())
+                cout = set(ic[t].tolist()) - set(ih[t].tolist())
+                pairs = [(float(lp[t, a] - lp[t, b]), float(eb[a] + eb[b]))
+                         for a in cin for b in cout]
+                ps = lp[t].exp().sort(descending=True).values
+                flips.append({
+                    "call": i, "token": t,
+                    "prob_margin": float(ps[k - 1] - ps[k]),
+                    "worst_margin_over_bound": max(m / bd for m, bd in pairs),
+                    "excused": all(m <= bd for m, bd in pairs)})
+        return flips, masks
+
+    def check_moe_logits(self):
+        """(d) Card vs CPU at full width, depth 2 (the 16-layer f32 model
+        would need 27.3 GB on the CPU side): the same posit16 PTQ weights, a
+        4 x 32-token paged prefill and one decode step, the kernels on the
+        card and the plain versions on the CPU.  Route flips are reported
+        and must be excused by the router's f32 bound; logits are compared
+        over the positions no flip touched (a flip in layer 0 touches its
+        sequence's later positions through attention)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.core.types import P16_2
+        from repro_torch.models.transformer import (assemble_paged_caches,
+                                                    extract_paged_pages,
+                                                    forward, init_params,
+                                                    init_paged_pages)
+        from repro_torch.quant.policy import PositPolicy
+        from repro_torch.quant.ptq import quantize_for_serving
+        cfg = dataclasses.replace(configs.get_config(
+            "olmoe-1b-7b", policy=PositPolicy(weights=P16_2,
+                                              kv_cache=P16_2)), n_layers=2)
+        qparams = quantize_for_serving(init_params(cfg, seed=1,
+                                                   device=self.dev), P16_2)
+        B, P = 4, 32
+        toks = np.random.default_rng(3).integers(
+            0, cfg.vocab, (B, P + 1)).astype(np.int32)
+
+        def run(params, dev):
+            t = torch.from_numpy(toks).to(dev)
+            pages = init_paged_pages(cfg, 1 + 3 * B, 16, device=dev)
+            table = torch.arange(1, 1 + 3 * B, dtype=torch.int32,
+                                 device=dev).reshape(B, 3)
+            z = torch.zeros(B, dtype=torch.int32, device=dev)
+            with torch.inference_mode():
+                caches = assemble_paged_caches(pages, table, z, z + P)
+                l1, _, caches = forward(params, cfg, tokens=t[:, :P],
+                                        caches=caches)
+                caches = assemble_paged_caches(extract_paged_pages(caches),
+                                               table, z + P, z + 1)
+                l2, _, _ = forward(params, cfg, tokens=t[:, P:],
+                                   caches=caches)
+            return torch.cat([l1, l2], dim=1).float().cpu()
+
+        with self._recording_routes() as card_routes:
+            gpu = run(qparams, self.dev)
+        qparams = self._to(qparams, "cpu")
+        t0 = time.perf_counter()
+        with self._recording_routes() as cpu_routes:
+            cpu = run(qparams, "cpu")
+        cpu_s = time.perf_counter() - t0
+        del qparams
+        flips, masks = self._route_flips(card_routes, cpu_routes, P16_2)
+        # calls: prefill layers 0, 1, then decode layers 0, 1
+        touched = torch.zeros((B, P + 1), dtype=torch.bool)
+        for i, m in enumerate(masks):
+            layer, decode = i % cfg.n_layers, i >= cfg.n_layers
+            for t in m.nonzero().flatten().tolist():
+                b, s = (t, P) if decode else divmod(t, P)
+                if layer < cfg.n_layers - 1:
+                    touched[b, s:] = True
+                else:
+                    touched[b, s] = True
+        keep = ~touched
+        rel = float((gpu - cpu).abs()[keep].max() / cpu.abs()[keep].max())
+        self.details["moe_logits"] = {
+            "rel_err": rel, "flips": flips,
+            "positions_compared": int(keep.sum()),
+            "positions": keep.numel(), "cpu_s": cpu_s}
+        log(f"[moe-check] depth-2 full-width olmoe logits, kernels on the "
+            f"card vs plain on the CPU ({cpu_s:.1f} s, "
+            f"{torch.get_num_threads()} threads): {len(flips)} route "
+            f"flips {flips}; {int(keep.sum())} of {keep.numel()} positions "
+            f"compared: max|diff|/max|logit| = {rel:.3e} (tol {LOGITS_TOL})")
+        if any(not f["excused"] for f in flips):
+            raise AssertionError("MoE logits: a route flip beyond the "
+                                 "router's f32 bound")
+        if not (np.isfinite(rel) and rel <= LOGITS_TOL):
+            raise AssertionError("MoE logits: card and CPU disagree")
+
+    def train_moe_whole_step(self):
+        """One training step's loss and gradients of olmoe-1b-7b at full
+        width, depth 2, posit16 STE weights, 2 x 128 tokens, without the
+        per-layer recompute (the CPU side encodes and decodes each 64 x 2048
+        x 1024 table through its plain version): the kernels on the card
+        against the plain versions on the CPU, under the route-flip rule.  Expert slices whose kept token
+        sets differ are left out of the gradient comparison, and the loss
+        is held only when no flip happened."""
+        torch = self.torch
+        from repro_torch import configs, tree
+        from repro_torch.core.types import P16_2
+        from repro_torch.data.pipeline import DataConfig, global_batch_at
+        from repro_torch.kernels import ops
+        from repro_torch.models.transformer import init_params
+        from repro_torch.quant.policy import PositPolicy
+        from repro_torch.training.train_step import _compute_grads
+        # remat off on both sides: the same function, and half the CPU's
+        # posit16 round trips of the expert tables (~5 s each there)
+        cfg = dataclasses.replace(configs.get_config(
+            "olmoe-1b-7b", policy=PositPolicy(weights=P16_2)), n_layers=2,
+            remat=False)
+        gparams = init_params(cfg, seed=0, device=self.dev)
+        batch = global_batch_at(0, DataConfig(vocab=cfg.vocab, seq_len=128,
+                                              global_batch=2), device="cpu")
+        ops.reset_counters()
+        with self._recording_routes() as card_routes:
+            loss_g, _, grads_g = _compute_grads(gparams, self._to(
+                batch, self.dev), cfg, 1)
+            torch.cuda.synchronize()
+        if any(ops.plain_counts().values()):
+            raise AssertionError(f"plain versions ran on the card: "
+                                 f"{ops.plain_counts()}")
+        grads_g = self._to(grads_g, "cpu")
+        params = self._to(gparams, "cpu")
+        del gparams
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with self._recording_routes() as cpu_routes:
+            loss_c, _, grads_c = _compute_grads(params, batch, cfg, 1)
+        cpu_s = time.perf_counter() - t0
+        flips, _ = self._route_flips(card_routes, cpu_routes, P16_2)
+        # expert slices whose kept token sets differ, per layer (the calls
+        # alternate forward / recompute within each layer's order)
+        skip = set()
+        for i, (c, h) in enumerate(zip(card_routes, cpu_routes)):
+            layer = i % cfg.n_layers
+            for e in range(MOE_E):
+                a = (c["idx"] == e) & c["keep"]
+                b = (h["idx"] == e) & h["keep"]
+                if not torch.equal(a.any(-1), b.any(-1)):
+                    skip.add((layer, e))
+        worst, compared = 0.0, 0
+        for (path, a), b in zip(self._leaf_paths(grads_g),
+                                tree.leaves(grads_c)):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"non-finite gradient {path}")
+            diff = (a - b).abs()
+            if path[0] == "layers" and path[2] == "moe" and \
+                    path[3] != "router":
+                sl = [e for e in range(MOE_E) if (path[1], e) not in skip]
+                diff, b = diff[sl], b[sl]
+            compared += diff.numel()
+            worst = max(worst, float(diff.max() / b.abs().max()))
+        rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        self.details["moe_train_whole_step"] = {
+            "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "loss_rel_err": rel, "grad_worst_err_over_max": worst,
+            "flips": flips, "expert_slices_skipped": sorted(skip),
+            "grad_entries_compared": compared, "cpu_s": cpu_s}
+        log(f"[moe-train] depth-2 full-width p16 step, card (kernels) vs CPU "
+            f"(plain, {cpu_s:.1f} s): loss {float(loss_g):.6f} vs "
+            f"{float(loss_c):.6f}, rel err {rel:.3e} (tol {TRAIN_LOSS_RTOL}); "
+            f"{len(flips)} route flips {flips}, {len(skip)} expert slices "
+            f"left out; worst gradient leaf max|diff|/max|g| {worst:.3e} "
+            f"(tol {TRAIN_GRAD_TOL})")
+        if any(not f["excused"] for f in flips):
+            raise AssertionError("MoE training step: a route flip beyond "
+                                 "the router's f32 bound")
+        if (not flips and rel > TRAIN_LOSS_RTOL) or worst > TRAIN_GRAD_TOL:
+            raise AssertionError("MoE training step: card and CPU disagree")
+
+    def _leaf_paths(self, tree_):
+        """(path tuple, leaf) in repro_torch.tree.leaves order."""
+        if isinstance(tree_, dict):
+            return [((k,) + p, x) for k in sorted(tree_)
+                    for p, x in self._leaf_paths(tree_[k])]
+        if isinstance(tree_, (list, tuple)):
+            return [((i,) + p, x) for i, v in enumerate(tree_)
+                    for p, x in self._leaf_paths(v)]
+        return [((), tree_)]
+
+    def train_moe_deterministic(self):
+        """The same MoE step (full width, depth 2, posit16 STE, 8 x 512
+        tokens) twice from the same params and AdamW state: bit-identical
+        params and state."""
+        torch = self.torch
+        from repro_torch import configs, tree
+        from repro_torch.core.types import P16_2
+        from repro_torch.data.pipeline import DataConfig, global_batch_at
+        from repro_torch.models.transformer import init_params
+        from repro_torch.optim.adamw import OptConfig, init_state
+        from repro_torch.quant.policy import PositPolicy
+        from repro_torch.training.train_step import make_train_step
+        cfg = dataclasses.replace(configs.get_config(
+            "olmoe-1b-7b", policy=PositPolicy(weights=P16_2)), n_layers=2)
+        opt = OptConfig(lr_peak=3e-4, warmup_steps=1, total_steps=8)
+        params = init_params(cfg, seed=0, device=self.dev)
+        state = init_state(params, opt)
+        batch = global_batch_at(0, DataConfig(vocab=cfg.vocab, seq_len=512,
+                                              global_batch=8),
+                                device=self.dev)
+        step = make_train_step(cfg, opt, device=self.dev)
+        first = step(params, state, batch)[:2]
+        second = step(params, state, batch)[:2]
+        same = [torch.equal(a, b) for a, b in zip(tree.leaves(first),
+                                                   tree.leaves(second))]
+        self.details["moe_deterministic_step"] = {
+            "leaves": len(same), "bit_identical": all(same)}
+        log(f"[moe-train] the same depth-2 step twice from one state: "
+            f"{sum(same)} of {len(same)} leaves (params and AdamW state) "
+            f"bit-identical")
+        if not all(same):
+            raise AssertionError("the MoE train step is not deterministic")
+
     def _to(self, tree, dev):
         if isinstance(tree, dict):
             return {k: self._to(v, dev) for k, v in tree.items()}
@@ -1761,10 +2262,66 @@ QUIRE_SHAPES = [(960, 960, False), (960, 2560, False), (2560, 960, False)]
 # per layer, the tied table once
 DW_SHAPES = [(960, 960), (960, 320), (960, 2560), (2560, 960), (49152, 960)]
 DW_PER_STEP = [64, 64, 64, 32, 1]
+# olmoe-1b-7b's MoE: experts, top-k, and the (name, K, N) of its expert
+# tables (w_up and w_gate share a shape)
+MOE_E, MOE_K = 64, 8
+MOE_TRAIN_LAYERS = 4
+MOE_SHAPES = [("up/gate", 2048, 1024), ("down", 1024, 2048)]
 TRAINING_KERNELS = ("flash_prefill", "flash_prefill_bwd_dq",
                     "flash_prefill_bwd_dkv", "posit_gemm_transpose_a")
 SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
                    "paged_flash_decode", "paged_flash_prefill")
+
+def serving_launches(cfg, prefill_steps: int, decode_steps: int):
+    """The launches one drain of `cfg` must make, and those of them that
+    the PTQ makes (not per step).  Per layer and step: the paged append
+    and attention, and the GEMMs (dense: 7 `pw_gemm`; MoE: 4 `pw_gemm`,
+    the f32 router's `posit_gemm` after its posit round trip, one encode
+    and one decode, and 3 `grouped_gemm`); per step the unembedding and
+    the embedding rows' decode; the PTQ encodes every weight table."""
+    L = cfg.n_layers
+    steps = prefill_steps + decode_steps
+    tables = 7 * L + 1
+    expect = {"paged_flash_decode": L * decode_steps,
+              "paged_flash_prefill": L * prefill_steps,
+              "paged_append": L * steps}
+    if cfg.moe is None:
+        expect.update(pw_gemm=tables * steps, decode_block=steps,
+                      encode_block=tables)
+    else:
+        expect.update(pw_gemm=(4 * L + 1) * steps, posit_gemm=L * steps,
+                      grouped_gemm=3 * L * steps,
+                      decode_block=(L + 1) * steps,
+                      encode_block=tables + L * steps)
+    return expect, {"encode_block": tables}
+
+
+def training_launches(cfg, steps: int, p16: bool):
+    """The launches `steps` training steps of `cfg` must make.  Per layer
+    the posit GEMM runs the attention projections (and, for MoE, the
+    router): 7 per dense layer, 5 per MoE layer, + the tied LM head; each
+    forward, recomputed, and twice in the backward (dA, and dB by
+    `transpose_a`).  An MoE layer's three expert GEMMs run K10 forward,
+    recomputed and as dX (`transpose_b`), and K11 once.  With posit16 STE
+    weights every float table is cast (one encode, one decode) in the
+    forward and the recompute (7 per dense layer, 8 per MoE layer: the
+    router and three expert tables in place of the MLP's three), and the
+    tied table 3 times (embed, unembed, its recompute)."""
+    L = cfg.n_layers
+    g = (5 if cfg.moe else 7) * L + 1
+    casts = (2 * (8 if cfg.moe else 7) * L + 3) if p16 else 0
+    expect = {"posit_gemm": 4 * g * steps,
+              "posit_gemm_transpose_a": g * steps,
+              "flash_prefill": 2 * L * steps,
+              "flash_prefill_bwd_dq": L * steps,
+              "flash_prefill_bwd_dkv": L * steps,
+              "encode_block": casts * steps, "decode_block": casts * steps}
+    if cfg.moe:
+        expect.update(grouped_gemm=9 * L * steps,
+                      grouped_gemm_transpose_b=3 * L * steps,
+                      grouped_gemm_dw=3 * L * steps)
+    return expect
+
 
 KERNEL_META = {
     "decode_block": ("src/repro_torch/csrc/posit_codec.cu",
@@ -1793,6 +2350,10 @@ KERNEL_META = {
                               "src/repro/kernels/flash_attention.py:626"),
     "posit_gemm_transpose_a": ("src/repro_torch/csrc/posit_gemm.cu",
                                "src/repro/kernels/posit_gemm.py:87"),
+    "grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
+                     "src/repro/kernels/grouped_gemm.py:146"),
+    "grouped_gemm_dw": ("src/repro_torch/csrc/grouped_gemm.cu",
+                        "src/repro/kernels/grouped_gemm.py:272"),
 }
 
 
@@ -1845,6 +2406,8 @@ def main() -> int:
     log(f"[phase] arithmetic {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     qparams, cfg, reqs = s.serve()
+    for name in SERVING_KERNELS:
+        s.record(name, launches=s.details["serving"]["launches"][name])
     log(f"[phase] serving {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     s.trace_decode(qparams, cfg, reqs)
@@ -1868,6 +2431,43 @@ def main() -> int:
     t0 = time.perf_counter()
     s.train_resume(root)
     log(f"[phase] training resume {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s.check_moe_kernels()
+    torch.cuda.empty_cache()
+    s.time_moe_kernels()
+    torch.cuda.empty_cache()
+    log(f"[phase] MoE kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    qparams, cfg, reqs = s.serve("olmoe-1b-7b", key="moe_serving")
+    s.record("grouped_gemm",
+             launches=s.details["moe_serving"]["launches"]["grouped_gemm"])
+    log(f"[phase] MoE serving {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s.trace_decode(qparams, cfg, reqs, key="moe_decode_trace")
+    del qparams
+    torch.cuda.empty_cache()
+    log(f"[phase] MoE decode trace {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s.check_moe_logits()
+    torch.cuda.empty_cache()
+    log(f"[phase] MoE logits check {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s.train_moe_whole_step()
+    torch.cuda.empty_cache()
+    log(f"[phase] MoE training step check {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # depth 4 of 16: full depth's f32 training state is ~136 GB
+    moe_leg = s.train_full("olmoe-1b-7b", legs=("p16",),
+                           n_layers=MOE_TRAIN_LAYERS,
+                           key="moe_training")["p16"]
+    s.record("grouped_gemm_dw", launches=moe_leg["launches"][
+        "grouped_gemm_dw"])
+    torch.cuda.empty_cache()
+    log(f"[phase] MoE training main path {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s.train_moe_deterministic()
+    log(f"[phase] MoE determinism {time.perf_counter() - t0:.1f} s")
 
     s.details["timings_with_host_gaps"] = HOST_GAPS
     rows = []
@@ -1885,11 +2485,19 @@ def main() -> int:
                       indent=1)
     # the main paths' own counts: the serving kernels read right after the
     # counted drain, the arithmetic kernels right after the counted pnp run,
-    # the training kernels right after the counted 8-step p16 run
-    log("kernels: " + json.dumps({**s.details["serving"]["launches"],
-                                  **arith_launches, **train_launches}))
+    # the training kernels right after the counted 8-step p16 run, K10 after
+    # the counted MoE drain and K11 after the counted MoE training run
+    log("kernels: " + json.dumps({
+        **s.details["serving"]["launches"], **arith_launches,
+        **train_launches,
+        "grouped_gemm": s.kernels["grouped_gemm"]["launches"],
+        "grouped_gemm_dw": s.kernels["grouped_gemm_dw"]["launches"]}))
     log("kernels (training main path, 8 p16 steps): "
         + json.dumps(legs["p16"]["launches"]))
+    log("kernels (MoE serving main path, the drain): "
+        + json.dumps(s.details["moe_serving"]["launches"]))
+    log("kernels (MoE training main path, 8 p16 steps at depth "
+        f"{MOE_TRAIN_LAYERS}): " + json.dumps(moe_leg["launches"]))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

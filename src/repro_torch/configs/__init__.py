@@ -1,9 +1,10 @@
 """Architecture registry of the port: get_config(name) -> full ModelConfig;
 get_smoke(name) -> the reduced same-family config for CPU tests."""
-from repro_torch.configs import smollm_360m
+from repro_torch.configs import olmoe_1b_7b, smollm_360m
 
 _MODULES = {
     "smollm-360m": smollm_360m,
+    "olmoe-1b-7b": olmoe_1b_7b,
 }
 
 ARCHS = tuple(_MODULES)

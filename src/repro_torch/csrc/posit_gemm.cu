@@ -44,33 +44,10 @@
 // no transposed copy exists anywhere.  A tiled output accumulates over k in
 // order 0..K-1 with fmaf in one thread; the epilogue stores it, or its
 // posit encoding.
-#include "posit_codec.cuh"
+#include "posit_tile.cuh"
 
 namespace {
 
-// Tile loaders: element i of an operand -> exact f32.
-struct F32In {
-  __device__ __forceinline__ float operator()(const void* p, size_t i) const {
-    return static_cast<const float*>(p)[i];
-  }
-};
-template <typename T>
-struct PositIn {
-  int n, es;
-  __device__ __forceinline__ float operator()(const void* p, size_t i) const {
-    return load_value<T>(static_cast<const T*>(p), i, n, es);
-  }
-};
-struct AnyIn {                         // storage type known at run time
-  int dtype, n, es;
-  __device__ __forceinline__ float operator()(const void* p, size_t i) const {
-    if (dtype == DT_I8)
-      return load_value<int8_t>(static_cast<const int8_t*>(p), i, n, es);
-    if (dtype == DT_I16)
-      return load_value<int16_t>(static_cast<const int16_t*>(p), i, n, es);
-    return static_cast<const float*>(p)[i];
-  }
-};
 // Epilogues: the f32 accumulator -> element i of the output.
 struct F32Out {
   __device__ __forceinline__ void operator()(void* p, size_t i,

@@ -61,6 +61,10 @@ SIGNATURES = {
                                                          _P),
         "flash_prefill_bwd_dkv": (_P,) * 10 + (_I,) * 8 + (_F, _F, _P),
     },
+    "grouped_gemm": {
+        "posit_grouped_gemm": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),
+        "posit_grouped_gemm_dw": (_P, _P, _P, _P) + (_I,) * 4 + (_P,),
+    },
 }
 
 # storage dtype -> the PositDtype code of csrc/posit_codec.cuh

@@ -2,7 +2,8 @@
 
 The counterpart of ``repro/kernels/ops.py``: `pw_matmul`, `decode`/`encode`,
 the paged attention entry points, the contiguous `flash_prefill` and its
-backward `flash_prefill_bwd`, and the posit arithmetic of ``repro.pnp``
+backward `flash_prefill_bwd`, the MoE's differentiable `grouped_matmul`,
+and the posit arithmetic of ``repro.pnp``
 (`elementwise`, `divide`, `gemm`; `gemm` on float operands is
 differentiable, its backward two more GEMM launches).  The device of the
 operands decides: CPU tensors take the plain versions, CUDA tensors the
@@ -24,9 +25,11 @@ from repro_torch.core.array import (PositArray, PositConfigMismatchError,
                                     is_float_dtype, is_int_dtype, result_cfg)
 from repro_torch.core.types import PositConfig
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import grouped_gemm as _ggemm
 from repro_torch.kernels import posit_codec as _codec
 from repro_torch.kernels import posit_elementwise as _ew
 from repro_torch.kernels import posit_gemm as _gemm
+from repro_torch.kernels import ref as _ref
 
 # name -> (kernel wrapper, plain version); wrappers count `.launches`,
 # plain versions `.calls`
@@ -48,6 +51,10 @@ KERNELS = {
                              _fa.flash_prefill_bwd_dq_plain),
     "flash_prefill_bwd_dkv": (_fa.flash_prefill_bwd_dkv,
                               _fa.flash_prefill_bwd_dkv_plain),
+    "grouped_gemm": (_ggemm.posit_grouped_gemm,
+                     _ggemm.posit_grouped_gemm_plain),
+    "grouped_gemm_dw": (_ggemm.posit_grouped_gemm_dw,
+                        _ggemm.posit_grouped_gemm_dw_plain),
 }
 
 
@@ -56,13 +63,17 @@ def reset_counters() -> None:
         kernel.launches = 0
         plain.calls = 0
     _gemm.posit_gemm.transpose_a_launches = 0
+    _ggemm.posit_grouped_gemm.transpose_b_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Launches per kernel; `posit_gemm_transpose_a` is the part of
-    `posit_gemm`'s count that ran the dW form."""
+    `posit_gemm`'s count that ran the dW form, `grouped_gemm_transpose_b`
+    the part of `grouped_gemm`'s that ran the dX form."""
     counts = {name: k.launches for name, (k, _) in KERNELS.items()}
     counts["posit_gemm_transpose_a"] = _gemm.posit_gemm.transpose_a_launches
+    counts["grouped_gemm_transpose_b"] = \
+        _ggemm.posit_grouped_gemm.transpose_b_launches
     return counts
 
 
@@ -323,3 +334,51 @@ def flash_prefill_bwd(q, k, v, o, lse, g, kv_len, q_offset, *, n_kv: int,
         q.to(torch.float32), kb, vb, o, lse, g,
         per_batch(kv_len, B, q.device), per_batch(q_offset, B, q.device),
         cfg_kv=cfg, causal=causal, window=window, softcap=softcap)
+
+
+# --------------------------------------------------------------------------
+# the grouped GEMM of the MoE block (forward, dX and dW)
+# --------------------------------------------------------------------------
+class _GroupedMM(torch.autograd.Function):
+    """The grouped GEMM with the reference's `_grouped_mm` VJP: the
+    cotangent is first masked to the rows inside [offsets[0], offsets[E]);
+    dX = G W[g]^T is K10 with transpose_b over the same storage (posit
+    experts stream at posit width), dW is K11's per-group X^T G, for float
+    weights only.  Posit weights and the offsets carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets, cfg):
+        ctx.save_for_backward(x, w, offsets)
+        ctx.cfg = cfg
+        return _ggemm.posit_grouped_gemm(x, w, offsets, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, off = ctx.saved_tensors
+        cfg = ctx.cfg
+        _, inb = _ref.grouped_row_ids(off, g.shape[0])
+        g = torch.where(inb[:, None], g.to(torch.float32), 0.0)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _ggemm.posit_grouped_gemm(g, w, off, cfg, transpose_b=True)
+        if cfg is None and ctx.needs_input_grad[1]:
+            dw = _ggemm.posit_grouped_gemm_dw(x, g, off)
+        return dx, dw, None, None
+
+
+def grouped_matmul(x: torch.Tensor, w, group_offsets: torch.Tensor, *,
+                   cfg: PositConfig | None = None) -> torch.Tensor:
+    """Expert-sorted rows x [S, k] @ per-group weights w [E, k, n] -> [S, n]
+    f32: rows [offsets[g], offsets[g+1]) contract against w[g], rows at or
+    past offsets[E] come back 0.  `w` is a PositArray, raw storage ints
+    with `cfg`, or a float tensor (cfg None); differentiable in x and in
+    float weights (`_GroupedMM`)."""
+    w, cfg, _ = _split(w, cfg)
+    if cfg is None and is_int_dtype(w.dtype):
+        raise TypeError(
+            "grouped_matmul: int payload bits need their format; wrap them "
+            "with pnp.frombits(bits, cfg) or pass cfg")
+    if cfg is None:
+        w = w.to(torch.float32)
+    return _GroupedMM.apply(x.to(torch.float32), w,
+                            group_offsets.to(torch.int32), cfg)

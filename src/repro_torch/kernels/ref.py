@@ -48,6 +48,62 @@ def posit_gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
     return f32_to_posit(acc, cfg_out) if out_posit else acc
 
 
+def grouped_row_ids(group_offsets: torch.Tensor, n_rows: int):
+    """Row -> group id under the sorted-segment layout ([E+1] offsets), and
+    the in-any-group mask (rows outside [offsets[0], offsets[E]) belong to
+    no group)."""
+    off = group_offsets.to(torch.int64)
+    rows = torch.arange(n_rows, device=off.device)
+    gid = (torch.searchsorted(off, rows, right=True) - 1).clamp(
+        0, off.shape[0] - 2)
+    inb = (rows >= off[0]) & (rows < off[-1])
+    return gid, inb
+
+
+def _group_bounds(group_offsets: torch.Tensor, n_rows: int) -> list:
+    """Per-group [start, end) row bounds on the host, clamped as the kernels
+    clamp them (start to [0, n_rows], end to [start, n_rows]) (the plain versions may read the offsets on
+    the host; nothing on the card's path does)."""
+    off = group_offsets.tolist()
+    out = []
+    for lo, hi in zip(off[:-1], off[1:]):
+        a = min(max(lo, 0), n_rows)
+        out.append((a, min(max(hi, a), n_rows)))
+    return out
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       group_offsets: torch.Tensor, *,
+                       cfg_b: PositConfig | None = None,
+                       transpose_b: bool = False) -> torch.Tensor:
+    """Rows [offsets[g], offsets[g+1]) of x [S, k] times w[g]: w is [E, k, n]
+    (or [E, n, k] with transpose_b, the backward's dX = G W^T), each
+    non-empty group's table decoded to f32 whole; rows outside every group
+    come back 0.  One matmul per non-empty group."""
+    xf = x.to(torch.float32)
+    n = w.shape[1] if transpose_b else w.shape[2]
+    out = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    for g, (a, b) in enumerate(_group_bounds(group_offsets, x.shape[0])):
+        if b > a:
+            wf = values(w[g], cfg_b)
+            out[a:b] = xf[a:b] @ (wf.T if transpose_b else wf)
+    return out
+
+
+def grouped_matmul_dw_ref(x: torch.Tensor, g: torch.Tensor,
+                          group_offsets: torch.Tensor) -> torch.Tensor:
+    """dw[e] = x[rows(e)]^T g[rows(e)] -> f32 [E, k, n]; 0 for an empty
+    group (the reference backward's one-hot "se,sk,sn->ekn" contraction)."""
+    E = group_offsets.shape[0] - 1
+    xf, gf = x.to(torch.float32), g.to(torch.float32)
+    dw = torch.zeros((E, x.shape[1], g.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    for e, (a, b) in enumerate(_group_bounds(group_offsets, x.shape[0])):
+        if b > a:
+            dw[e] = xf[a:b].T @ gf[a:b]
+    return dw
+
+
 def elementwise_ref(op: str, *inputs, cfg: PositConfig) -> torch.Tensor:
     fn = {"add": pops.padd, "sub": pops.psub, "mul": pops.pmul,
           "fma": pops.pfma}[op]

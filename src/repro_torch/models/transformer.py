@@ -1,5 +1,5 @@
-"""Decoder LM assembly for the `attn` block pattern: the forward over a
-paged KV cache (serving) and without caches (training).
+"""Decoder LM assembly for the `attn` block pattern, dense or MoE: the
+forward over a paged KV cache (serving) and without caches (training).
 
 The counterpart of ``repro/models/transformer.py``.  The reference stacks
 layer params per pattern position and scans over them under
@@ -18,15 +18,27 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import moe as MOE
 from repro_torch.quant.policy import NONE, PositPolicy
 
 Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # capacity/dispatch group: training drops overflow per `group_size`
+    # tokens, in arrival order (models/moe.py)
+    group_size: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A dense decoder: all-`attn` layers, RMSNorm, SwiGLU, RoPE and a
-    tied embedding table (the reference's defaults)."""
+    """A decoder: all-`attn` layers, RMSNorm, SwiGLU, RoPE and a tied
+    embedding table (the reference's defaults); `moe` replaces each
+    layer's MLP by a Mixture-of-Experts block."""
     name: str
     n_layers: int
     d_model: int
@@ -37,6 +49,7 @@ class ModelConfig:
     head_dim: int = 0                 # 0 -> d_model // n_heads
     act: str = "swiglu"
     rope_theta: float = 10000.0
+    moe: MoEConfig | None = None
     policy: PositPolicy = NONE
     remat: bool = True                # recompute each layer in the backward
 
@@ -45,17 +58,24 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Parameters of the tied-embedding SwiGLU decoder."""
+        """Parameters of the tied-embedding SwiGLU decoder: with `moe`,
+        every expert's three tables and the router."""
         d, hd = self.d_model, self.hd
         attn = d * hd * (2 * self.n_heads + 2 * self.n_kv)
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        if self.moe:
+            E = self.moe.n_experts
+            mlp = d * E + E * 3 * d * self.d_ff
+        else:
+            mlp = 3 * d * self.d_ff
+        per_layer = attn + mlp + 2 * d
         return self.n_layers * per_layer + self.vocab * d + d
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cuda") -> Params:
     """The port's own seeded init, with the reference's distributions:
-    N(0, 1/fan_in) linears, N(0, 1/d) embedding, unit norm scales."""
+    N(0, 1/fan_in) linears, N(0, 1/d) embedding, unit norm scales, and
+    `moe.init_moe`'s expert tables."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -66,7 +86,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             "ln2": B.init_rmsnorm(cfg.d_model, dev),
             "attn": B.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
                                      cfg.hd),
-            "mlp": B.init_mlp(gen, cfg.d_model, cfg.d_ff),
+            **({"moe": MOE.init_moe(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.moe.n_experts, cfg.act)}
+               if cfg.moe else
+               {"mlp": B.init_mlp(gen, cfg.d_model, cfg.d_ff)}),
         })
     return {
         "embed": B.init_embedding(gen, cfg.vocab, cfg.d_model),
@@ -112,19 +135,30 @@ def extract_paged_pages(caches):
 
 
 def _layer(x, p, cfg: ModelConfig, positions, cache):
+    """-> (x, new cache, the layer's MoE aux loss or None)."""
     h, nc = B.attention_block(
         B.rms_norm(x, p["ln1"]), p["attn"], n_heads=cfg.n_heads,
         n_kv=cfg.n_kv, head_dim=cfg.hd, positions=positions,
         policy=cfg.policy, rope_theta=cfg.rope_theta, kv_cache=cache)
     x = x + h
-    x = x + B.mlp_block(B.rms_norm(x, p["ln2"]), p["mlp"], act=cfg.act,
-                        policy=cfg.policy)
-    return x, nc
+    if not cfg.moe:
+        return x + B.mlp_block(B.rms_norm(x, p["ln2"]), p["mlp"],
+                               act=cfg.act, policy=cfg.policy), nc, None
+    # serving never drops: a per-group capacity would couple a token's
+    # output to the other requests sharing its step
+    h, aux = MOE.moe_block(
+        B.rms_norm(x, p["ln2"]), p["moe"], n_experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, act=cfg.act, policy=cfg.policy,
+        capacity_factor=(None if cache is not None
+                         else cfg.moe.capacity_factor),
+        group_size=cfg.moe.group_size)
+    return x + h, nc, aux
 
 
 def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
             caches=None, positions=None, return_hidden: bool = False):
-    """Returns (logits [B, S, vocab] f32, aux_loss, new_caches).
+    """Returns (logits [B, S, vocab] f32, aux_loss, new_caches); aux_loss
+    is the MoE layers' summed load-balancing loss (0 for a dense model).
 
     tokens [B, S] int.  caches: from assemble_paged_caches (serving), or
     None (training: each sequence attends over itself from position 0;
@@ -147,18 +181,20 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
         positions = off + torch.arange(S, device=x.device)[None, :]
 
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_layers = []
     for p, cache in zip(params["layers"], layers):
         if remat:
             # keep the layer's input only; the backward recomputes the rest
-            x, nc = checkpoint(_layer, x, p, cfg, positions, cache,
-                               use_reentrant=False)
+            x, nc, a = checkpoint(_layer, x, p, cfg, positions, cache,
+                                  use_reentrant=False)
         else:
-            x, nc = _layer(x, p, cfg, positions, cache)
+            x, nc, a = _layer(x, p, cfg, positions, cache)
+        if a is not None:
+            aux = aux + a
         new_layers.append(nc)
 
     x = B.rms_norm(x, params["ln_f"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = {"layers": new_layers} if caches is not None else None
     if return_hidden:
         return x, aux, new_caches

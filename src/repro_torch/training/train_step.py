@@ -61,7 +61,8 @@ def lm_loss(params, cfg: ModelConfig, batch):
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     hidden, aux, _ = forward(params, cfg, tokens=inputs, return_hidden=True)
     nll = _chunked_lm_head_nll(hidden, labels, params, cfg)
-    return nll + AUX_WEIGHT * aux, {"nll": nll.detach()}
+    return nll + AUX_WEIGHT * aux, {"nll": nll.detach(),
+                                     "aux": aux.detach()}
 
 
 def _value_and_grad(params, cfg: ModelConfig, batch):

@@ -114,3 +114,52 @@ def test_training_entry_points_raise_without_a_gpu():
             call()
     assert sum(ops.plain_counts().values()) == 0
     assert sum(ops.launch_counts().values()) == 0
+
+
+def test_moe_entry_points_raise_without_a_gpu():
+    """The MoE path asks for the card by default and its modules stand
+    alone: models/moe.py and kernels/grouped_gemm.py import no JAX and no
+    repro, the olmoe config's init raises on "cuda" with no GPU, and the
+    grouped GEMM, its dW and the MoE block on a non-CPU tensor take the
+    kernel path, which raises instead of running the plain versions."""
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro(\.|\s|$)"
+                     r"|from\s+repro(\.|\s))", re.M)
+    for rel in ("models/moe.py", "kernels/grouped_gemm.py",
+                "configs/olmoe_1b_7b.py"):
+        src = open(os.path.join(SRC, "repro_torch", rel)).read()
+        assert not pat.search(src), rel
+    code = ("import sys\n"
+            "import repro_torch.models.moe, repro_torch.kernels.grouped_gemm\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or "
+            "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code],
+                         env=dict(os.environ, PYTHONPATH=SRC),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_params
+    from repro_torch.quant.policy import PositPolicy
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(get_smoke("olmoe-1b-7b"), device="cuda")
+    ops.reset_counters()
+    x = torch.empty(6, 8, device="meta")
+    w = torch.empty(2, 8, 4, device="meta")
+    off = torch.zeros(3, dtype=torch.int32, device="meta")
+    p = {"router": torch.empty(8, 2, device="meta"), "w_up": w,
+         "w_gate": w, "w_down": torch.empty(2, 4, 8, device="meta")}
+    for call in (lambda: ops.grouped_matmul(x, w, off),
+                 lambda: GG.posit_grouped_gemm_dw(x, x, off),
+                 lambda: moe.moe_block(x.reshape(1, 6, 8), p, n_experts=2,
+                                       top_k=1, act="swiglu",
+                                       policy=PositPolicy())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert sum(ops.plain_counts().values()) == 0
+    assert sum(ops.launch_counts().values()) == 0

@@ -26,23 +26,28 @@ def port_posit(cfg):
 
 
 def port_config(cfg):
-    """Reference ModelConfig (all-attn, swiglu) -> the port's."""
-    from repro_torch.models.transformer import ModelConfig
+    """Reference ModelConfig (all-attn, swiglu, dense or MoE) -> the
+    port's."""
+    from repro_torch.models.transformer import ModelConfig, MoEConfig
     from repro_torch.quant.policy import PositPolicy
-    assert cfg.block_pattern == ("attn",) and cfg.moe is None
+    assert cfg.block_pattern == ("attn",)
     assert cfg.tie_embeddings and not cfg.qkv_bias
     pol = PositPolicy(weights=port_posit(cfg.policy.weights),
                       kv_cache=port_posit(cfg.policy.kv_cache))
+    moe = None if cfg.moe is None else MoEConfig(
+        n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        capacity_factor=cfg.moe.capacity_factor,
+        group_size=cfg.moe.group_size)
     return ModelConfig(name=cfg.name, n_layers=cfg.n_layers,
                        d_model=cfg.d_model, n_heads=cfg.n_heads,
                        n_kv=cfg.n_kv, d_ff=cfg.d_ff, vocab=cfg.vocab,
                        head_dim=cfg.head_dim, act=cfg.act,
-                       rope_theta=cfg.rope_theta, policy=pol)
+                       rope_theta=cfg.rope_theta, moe=moe, policy=pol)
 
 
-def smoke_models(posit: str, ptq: bool = True):
+def smoke_models(posit: str, ptq: bool = True, arch: str = "smollm-360m"):
     """(reference cfg, reference params, port cfg, port params) for the
-    smollm-360m smoke config under `posit` in {off, p16, p8}: weights from
+    smoke config of `arch` under `posit` in {off, p16, p8}: weights from
     the reference's init_params(PRNGKey(0)), post-training quantized when
     `ptq` (else float weights under the posit policy), carried through
     repro_torch.convert."""
@@ -56,7 +61,7 @@ def smoke_models(posit: str, ptq: bool = True):
 
     pcfg = {"p8": P8_2, "p16": P16_2}.get(posit)
     policy = PositPolicy(weights=pcfg, kv_cache=pcfg) if pcfg else PositPolicy()
-    cfg = configs.get_smoke("smollm-360m", policy=policy)
+    cfg = configs.get_smoke(arch, policy=policy)
     params = init_params(jax.random.PRNGKey(0), cfg)
     if pcfg is not None and ptq:
         # jitted: one compile instead of one per eager op, same values
