@@ -64,6 +64,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    comparison); then `train_loop` at depth 4 of 16 for 8 posit16 steps
    of 8 x 512 tokens (counted, with a profiled step) and one depth-2
    step repeated from the same state, bit-identical;
+7. the recurrent and hybrid serving path: (a) the WKV scan (K12) and the
+   RG-LRU scan (K13) against their plain versions at rwkv6-3b's and
+   recurrentgemma-9b's serving shapes (T = 1 and 128; posit16, posit8,
+   round-tripped f32 and f32 state; ragged num_new with a 0): final state
+   and K13's outputs bit-identical, K12's y within the f32 bound; the paged
+   attention (K3/K4) at head_dim 256 with 16 query heads per kv head,
+   window 2,048 and the pages before it reclaimed to a garbage page of NaR
+   patterns; the [BH, Sq, D] attention (K14); their timings beside the
+   plain versions, the bound and SDPA for K14, and a counted
+   `ops.attention` run; (b) rwkv6-3b and recurrentgemma-9b at full width
+   and depth from posit16 weights, KV and state pools, 16 requests (and
+   two 2,176-token prompts past recurrentgemma's window) through
+   PagedServingEngine, counted as in phase 3, each with a profiled decode
+   window; (c) logits at full width (rwkv6 depth 2, recurrentgemma depth
+   3) on the card against the CPU, with the state patterns that differ;
+   (d) smoke drains of both, card against CPU, token for token;
 4. ``kernels: {...}`` with each kernel's launches on its main path, the
    card's name and power limit, one JSON line of per-kernel numbers, and
    last the contract line ``{"ok": true, "device": {...}}``.
@@ -1281,10 +1297,11 @@ class Smoke:
         return {k: launches[k] for k in expect}
 
     # ---- phase 3: the main path ------------------------------------------
-    def serve(self, arch="smollm-360m", key="serving"):
+    def serve(self, arch="smollm-360m", key="serving", long_prompts=0):
         """The serving main path of `arch` at full width from the port's
-        seeded init, post-training quantized to posit16 (weights and KV),
-        16 requests (prompts 128..512, 32 new tokens, greedy) through
+        seeded init, post-training quantized to posit16 (weights, KV and
+        recurrent state), 16 requests (prompts 128..512, 32 new tokens,
+        greedy) and `long_prompts` more of 2,176 tokens through
         PagedServingEngine(max_seqs=8, page_size=16, prefill_chunk=128),
         every counter zeroed just before the PTQ and read just after the
         drain; the launches must match the path's structure
@@ -1307,7 +1324,9 @@ class Smoke:
         lens = rng.integers(128, 513, 16)
         reqs = [(rng.integers(0, cfg.vocab, int(n)).astype(np.int32), 32)
                 for n in lens]
-        width = -(-(512 + 32) // 16)
+        reqs += [(rng.integers(0, cfg.vocab, LONG_PROMPT).astype(np.int32),
+                  32) for _ in range(long_prompts)]
+        width = -(-(max(len(p) for p, _ in reqs) + 32) // 16)
         torch.cuda.synchronize()
 
         # ---- the counted run: PTQ + engine + drain ----
@@ -1352,6 +1371,9 @@ class Smoke:
             t = getattr(tree, "bits", tree)
             return t.numel() * t.element_size()
 
+        if long_prompts and not stats["expired_page_frees"]:
+            raise AssertionError(f"serving {arch}: prompts past the window "
+                                 f"freed no expired page; stats {stats}")
         steps = pre + dec
         n_tok = sum(len(v) for v in out.values())
         d_ms = np.asarray(eng.step_times["decode"]) * 1e3
@@ -1367,7 +1389,11 @@ class Smoke:
             "prefill_steps": pre, "decode_steps": dec,
             "preempted": stats["preempted"],
             "weights_bytes": nbytes(qparams), "params": cfg.param_count(),
-            "pool_bytes": nbytes(eng.pages), "launches": got,
+            "pool_bytes": nbytes(eng.pages),
+            "state_bytes": nbytes([layer for layer in eng.pages["layers"]
+                                   if "k_pages" not in layer]),
+            "expired_page_frees": stats["expired_page_frees"],
+            "table_width": width, "launches": got,
             "launches_per_step": {k: (v - ptq.get(k, 0)) / steps
                                   for k, v in got.items()},
             "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -1376,9 +1402,11 @@ class Smoke:
         self.details[key] = serving
         card = self.details["gpu"]
         log(f"[serve] {cfg.name} full width ({cfg.param_count()} params, "
-            f"{cfg.n_layers} layers), p16 weights + KV, 16 requests (prompts "
-            f"128..512, max_new 32, greedy), max_seqs=8, page=16, chunk=128 "
-            f"on {card}")
+            f"{cfg.n_layers} layers), p16 weights + KV + state, {len(reqs)} "
+            f"requests (prompts 128..512"
+            f"{f' and {long_prompts} x {LONG_PROMPT}' if long_prompts else ''}"
+            f", max_new 32, greedy), max_seqs=8, page=16, chunk=128 on "
+            f"{card}")
         log(f"[serve] {n_tok} tokens in {drain_s:.3f} s = "
             f"{serving['tok_per_s']:.1f} tok/s; mean TTFT "
             f"{serving['ttft_mean_ms']:.1f} ms; decode step p50 "
@@ -1386,7 +1414,9 @@ class Smoke:
             f"{serving['prefill_step_p50_ms']:.2f} ms; {pre} prefill + {dec} "
             f"decode steps ({card})")
         log(f"[serve] weights {serving['weights_bytes'] / 1e6:.1f} MB, pool "
-            f"{serving['pool_bytes'] / 1e6:.1f} MB, peak "
+            f"{serving['pool_bytes'] / 1e6:.1f} MB (state "
+            f"{serving['state_bytes'] / 1e6:.3f} MB), expired page frees "
+            f"{serving['expired_page_frees']}, peak "
             f"{serving['peak_bytes'] / 2 ** 30:.2f} GiB; launches per step "
             f"{json.dumps(serving['launches_per_step'])} ({card})")
         return qparams, cfg, reqs
@@ -1499,9 +1529,11 @@ class Smoke:
         if not (np.isfinite(rel) and rel <= LOGITS_TOL):
             raise AssertionError("full-width logits disagree")
 
-    def check_smoke_drain(self):
-        """A smoke-size drain with preemption on the card (kernels) and on
-        the CPU (plain versions), same weights: identical greedy tokens."""
+    def check_smoke_drain(self, arch="smollm-360m"):
+        """A smoke-size drain of `arch` with preemption on the card
+        (kernels) and on the CPU (plain versions), same weights: identical
+        greedy tokens.  A model with no attention layer takes no pages, so
+        it is preempted by hand (the youngest sequence, after 4 steps)."""
         import numpy as np
         from repro_torch import configs
         from repro_torch.core.types import P8_2, P16_2
@@ -1517,7 +1549,7 @@ class Smoke:
         for pcfg in (P16_2, P8_2, None):
             pol = (PositPolicy(weights=pcfg, kv_cache=pcfg) if pcfg
                    else PositPolicy())
-            cfg = configs.get_smoke("smollm-360m", policy=pol)
+            cfg = configs.get_smoke(arch, policy=pol)
             outs = []
             for dev in ("cuda", "cpu"):
                 params = init_params(cfg, seed=0, device="cpu")
@@ -1525,12 +1557,20 @@ class Smoke:
                 if pcfg is not None:
                     params = quantize_for_serving(params, pcfg)
                 eng = PagedServingEngine(params, cfg, device=dev, **kw)
-                outs.append((eng.run(list(reqs)), eng.counters["preempted"]))
+                for prompt, n in reqs:
+                    eng.submit(prompt, n)
+                if not eng.layout.needs_pages:
+                    for _ in range(4):
+                        eng.step()
+                    if not eng._preempt(exclude=0):
+                        raise AssertionError("smoke drain: nothing to "
+                                             "preempt")
+                outs.append((eng.run(), eng.counters["preempted"]))
             (a, pa), (b, pb) = outs
             same = sorted(a) == sorted(b) and all(
                 np.array_equal(a[r], b[r]) for r in a)
-            log(f"[check] smoke drain {pcfg or 'float'}: card vs CPU greedy "
-                f"tokens identical: {same} (preempted {pa}/{pb})")
+            log(f"[check] smoke drain {arch} {pcfg or 'float'}: card vs CPU "
+                f"greedy tokens identical: {same} (preempted {pa}/{pb})")
             if not same or pa < 1:
                 raise AssertionError("smoke drain: card and CPU disagree")
 
@@ -2242,6 +2282,464 @@ class Smoke:
         if not all(same):
             raise AssertionError("the MoE train step is not deterministic")
 
+    # ---- phase 7: recurrent and hybrid serving -----------------------------
+    def _scan_nn(self, T):
+        """Ragged num_new over 8 slots, a 0 among them."""
+        vals = [T, max(T - 1, 0), T // 2, 1, 0, T, min(3, T), T]
+        return self.torch.tensor(vals, dtype=self.torch.int32,
+                                 device=self.dev)
+
+    def _scan_state(self, mode, shape, scale):
+        """A seeded state of `mode` (p16, p8: posit bits; f32-rt: f32 of
+        posit16 values; f32) -> (raw tensor, cfg_state, posit_state)."""
+        from repro_torch.core.types import P8_2, P16_2
+        from repro_torch.kernels import ref
+        vals = self.randn(*shape, scale=scale)
+        if mode in ("p16", "p8"):
+            cfg = P16_2 if mode == "p16" else P8_2
+            return ref.encode_ref(vals, cfg), cfg, True
+        if mode == "f32-rt":
+            return ref.rt(vals, P16_2), P16_2, False
+        return vals, None, False
+
+    def _same_bits(self, a, b):
+        torch = self.torch
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return bool(torch.equal(a, b))
+
+    def _wkv_y_bound(self, r, k, v, logw, u, s0f, nn, cfg):
+        """Per-element bound on |K12's y - the plain y| when both carry the
+        same state bits: each y is an f32 sum of dh + 1 rounded terms (the
+        r.S dot product and the bonus (sum r u k) v) taken in another order,
+        so each lies within gamma(dh + 4) of the exact sum of the terms'
+        magnitudes, and the two within twice that."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        dh = r.shape[-1]
+        n = dh + 4
+        g = 2 * n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+        S = s0f
+        out = []
+        for t in range(r.shape[2]):
+            rt_, kt, vt, wt = (x[:, :, t] for x in (r, k, v, logw))
+            mag = (torch.einsum("bhd,bhdv->bhv", rt_.abs(), S.abs())
+                   + (rt_ * u * kt).abs().sum(-1, keepdim=True) * vt.abs())
+            out.append(g * mag)
+            S_new = ref.rt(torch.exp(wt)[..., None] * S
+                           + kt[..., None] * vt[:, :, None, :], cfg)
+            S = torch.where((t < nn)[:, None, None, None], S_new, S)
+        return torch.stack(out, dim=2)
+
+    def _wkv_inputs(self, B, H, T, dh):
+        r, k, v = (self.randn(B, H, T, dh) for _ in range(3))
+        logw = -self.torch.exp(self.randn(B, H, T, dh, scale=0.5) - 1.0)
+        u = self.randn(H, dh)
+        return r, k, v, logw, u
+
+    def check_recurrent_kernels(self):
+        """K12 and K13 against their plain versions at the serving shapes
+        (rwkv6-3b: B = 8, H = 40, dh = 64; recurrentgemma-9b: B = 8, d =
+        4,096), T = 1 and 128, for posit16, posit8, f32 round-tripped
+        through posit16 and plain f32 state, ragged num_new with a 0: the
+        final state bit-identical, K13's h sequence bit-identical, K12's y
+        within the f32 bound of `_wkv_y_bound`; the idle slot's bits come
+        back as they went in.  u, w_lora_b's product (logw) and the state
+        are drawn from a seeded normal: the reference's init zeroes u and
+        the decay LoRA."""
+        torch = self.torch
+        from repro_torch.kernels import recurrent_scan as RS
+        from repro_torch.kernels import ref
+        for T in (1, 128):
+            nn = self._scan_nn(T)
+            r, k, v, logw, u = self._wkv_inputs(8, 40, T, 64)
+            a = torch.sigmoid(self.randn(8, T, 4096) + 2.0)
+            b = self.randn(8, T, 4096, scale=0.3)
+            for mode in ("p16", "p8", "f32-rt", "f32"):
+                s0, cfg, ps = self._scan_state(mode, (8, 40, 64, 64), 0.5)
+                y, sf = RS.wkv_scan(r, k, v, logw, u, s0, nn, cfg_state=cfg,
+                                    posit_state=ps)
+                y_p, sf_p = RS.wkv_scan_plain(r, k, v, logw, u, s0, nn,
+                                              cfg_state=cfg, posit_state=ps)
+                torch.cuda.synchronize()
+                same = self._same_bits(sf, sf_p)
+                idle = self._same_bits(sf[4], s0[4])
+                s0f = ref.decode_ref(s0, cfg) if ps else s0
+                tol = self._wkv_y_bound(r, k, v, logw, u, s0f, nn, cfg)
+                log(f"[wkv_scan] T={T} state {mode}: state bit-identical "
+                    f"{same}, idle slot kept {idle}")
+                ratio = self._within("wkv_scan", f"T={T} state {mode} y", y,
+                                     y_p, tol)
+                if not (same and idle and bool((y[4] == 0).all())):
+                    raise AssertionError(f"wkv_scan T={T} {mode}: state "
+                                         f"differs from the plain version")
+                self.details.setdefault("wkv_y_err_over_bound", {})[
+                    f"T={T} {mode}"] = ratio
+                h0, cfg, ps = self._scan_state(mode, (8, 4096), 1.0)
+                h, hf = RS.rglru_scan(a, b, h0, nn, cfg_state=cfg,
+                                      posit_state=ps)
+                h_p, hf_p = RS.rglru_scan_plain(a, b, h0, nn, cfg_state=cfg,
+                                                posit_state=ps)
+                torch.cuda.synchronize()
+                ok = (self._same_bits(hf, hf_p) and self._same_bits(h, h_p)
+                      and self._same_bits(hf[4], h0[4]))
+                self.err("rglru_scan", (h - h_p).abs().max())
+                log(f"[rglru_scan] T={T} state {mode}: h sequence and final "
+                    f"state bit-identical {ok}")
+                if not ok:
+                    raise AssertionError(f"rglru_scan T={T} {mode}: differs "
+                                         f"from the plain version")
+
+    def _nar_pool(self, cfg, P, n_kv, page, D):
+        """A pool whose garbage page 0 holds NaR (NaN for f32), and its twin
+        with a finite garbage page."""
+        torch = self.torch
+        kp, vp = self._pool(cfg, P, n_kv, page, D)
+        bad = (float("nan") if cfg is None else -(1 << (cfg.n - 1)))
+        kn, vn = kp.clone(), vp.clone()
+        kn[0] = bad
+        vn[0] = bad
+        kp[0] = 0
+        vp[0] = 0
+        return (kn, vn), (kp, vp)
+
+    def _reclaimed_table(self, B, W, P, prev_len, window, page):
+        """Distinct pages per sequence, with the pages a reclaiming engine
+        has freed (entirely before `window` at length prev_len) pointing at
+        the garbage page 0."""
+        torch = self.torch
+        table = self._table(B, W, P)
+        n = ((prev_len - window).clamp(min=0) // page)
+        j = torch.arange(W, device=self.dev)
+        return torch.where(j[None, :] < n[:, None], 0, table).to(torch.int32)
+
+    def check_attention_d256(self):
+        """K3/K4 at recurrentgemma-9b's attention: D = 256, 16 query heads
+        on one kv head, window 2,048, seq_lens up to 2,600, the pages before
+        the window reclaimed to a garbage page of NaR patterns (NaN for f32
+        pools): within ATTN_TOL of the plain version over the same pool
+        with a finite garbage page, and bit-identical to the kernel's own
+        result over that finite pool (the masked page never enters the
+        arithmetic)."""
+        torch = self.torch
+        from repro_torch.core.types import P8_2, P16_2
+        from repro_torch.kernels import flash_attention as F
+        B, H, n_kv, page, D, win = 8, 16, 1, 16, 256, 2048
+        W = -(-2600 // page)
+        P = B * W + 1
+        for cfg in (P16_2, P8_2, None):
+            fmt = cfg or "float"
+            (kn, vn), (kp, vp) = self._nar_pool(cfg, P, n_kv, page, D)
+            sl = torch.tensor([1, 17, 300, 2047, 2048, 2049, 2600, 0],
+                              dtype=torch.int32, device=self.dev)
+            table = self._reclaimed_table(B, W, P, sl - 1, win, page)
+            q = self.randn(B, H, D)
+            live = (sl > 0)[:, None, None].expand(B, H, D)
+            got = F.paged_flash_decode(q, kn, vn, table, sl, cfg_kv=cfg,
+                                       window=win)
+            clean = F.paged_flash_decode(q, kp, vp, table, sl, cfg_kv=cfg,
+                                         window=win)
+            want = F.paged_flash_decode_plain(q, kp, vp, table, sl,
+                                              cfg_kv=cfg, window=win)
+            if not self._same_bits(got, clean):
+                raise AssertionError(f"paged_flash_decode D=256 {fmt}: the "
+                                     f"NaR garbage page reached the output")
+            self._compare_attn("paged_flash_decode",
+                               f"D=256 G=16 {fmt} window={win} NaR garbage",
+                               got, want, live, dead_zero=True)
+            Sq = 128
+            qo = torch.tensor([0, 100, 1920, 2000, 2048, 2300, 2472, 5],
+                              dtype=torch.int32, device=self.dev)
+            nn = torch.tensor([128, 128, 128, 77, 128, 128, 128, 60],
+                              dtype=torch.int32, device=self.dev)
+            sl = qo + nn
+            table = self._reclaimed_table(B, W, P, qo, win, page)
+            q = self.randn(B, H, Sq, D)
+            rows = torch.arange(Sq, device=self.dev)
+            live = (rows[None, :] < nn[:, None])[:, None, :, None]
+            live = live.expand(B, H, Sq, D)
+            got = F.paged_flash_prefill(q, kn, vn, table, sl, qo, cfg_kv=cfg,
+                                        window=win)
+            clean = F.paged_flash_prefill(q, kp, vp, table, sl, qo,
+                                          cfg_kv=cfg, window=win)
+            want = F.paged_flash_prefill_plain(q, kp, vp, table, sl, qo,
+                                               cfg_kv=cfg, window=win)
+            if not self._same_bits(got[live], clean[live]):
+                raise AssertionError(f"paged_flash_prefill D=256 {fmt}: the "
+                                     f"NaR garbage page reached the output")
+            self._compare_attn("paged_flash_prefill",
+                               f"D=256 G=16 {fmt} Sq=128 window={win} NaR "
+                               f"garbage", got, want, live, dead_zero=False)
+
+    def check_flash_attention(self):
+        """K14 ([BH, Sq, D] attention, queries at the last Sq positions)
+        against its plain version: BH = 120 (8 x 15 heads), D = 64, Sq =
+        Skv = 512 and Sq = 128 over Skv = 640, causal and not, posit16 and
+        f32 KV, within ATTN_TOL."""
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import flash_attention as F
+        from repro_torch.kernels import ref
+        BH, D = 120, 64
+        for Sq, Skv in ((512, 512), (128, 640)):
+            q = self.randn(BH, Sq, D)
+            k, v = self.randn(BH, Skv, D), self.randn(BH, Skv, D)
+            for cfg in (P16_2, None):
+                kb, vb = ((ref.encode_ref(k, cfg), ref.encode_ref(v, cfg))
+                          if cfg else (k, v))
+                for causal in (True, False):
+                    got = F.flash_attention(q, kb, vb, cfg_kv=cfg,
+                                            causal=causal)
+                    want = F.flash_attention_plain(q, kb, vb, cfg_kv=cfg,
+                                                   causal=causal)
+                    live = self.torch.ones_like(got, dtype=self.torch.bool)
+                    self._compare_attn(
+                        "flash_attention", f"Sq={Sq} Skv={Skv} "
+                        f"{cfg or 'float'} causal={causal}", got, want, live,
+                        dead_zero=False)
+
+    def attention_entry(self):
+        """The K14 entry's own path: `ops.attention` on posit16 and f32 KV
+        at [120, 512, 64], counters zeroed just before and read just
+        after; no plain version may run."""
+        from repro_torch.core.array import PositArray
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import ops, ref
+        q = self.randn(120, 512, 64)
+        k, v = self.randn(120, 512, 64), self.randn(120, 512, 64)
+        kp = PositArray(ref.encode_ref(k, P16_2), P16_2)
+        vp = PositArray(ref.encode_ref(v, P16_2), P16_2)
+        self.torch.cuda.synchronize()
+        ops.reset_counters()
+        outs = [ops.attention(q, kp, vp), ops.attention(q, k, v)]
+        self.torch.cuda.synchronize()
+        launches, plain = ops.launch_counts(), ops.plain_counts()
+        if any(plain.values()) or launches["flash_attention"] != 2 or \
+                not all(bool(self.torch.isfinite(o).all()) for o in outs):
+            raise AssertionError(f"ops.attention: launches {launches}, "
+                                 f"plain {plain}")
+        return {"flash_attention": launches["flash_attention"]}
+
+    def time_recurrent_kernels(self):
+        """K12 and K13 at a decode step's (T = 1) and a prefill chunk's
+        (T = 128) shapes with posit16 state, one layer each; K3/K4 at D =
+        256, G = 16 (recurrentgemma's attention) at the smollm rows' lengths
+        and at 8 x 2,208 tokens with the 2,048 window; K14 at [120, 512,
+        64] posit16 KV causal beside SDPA."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import flash_attention as F
+        from repro_torch.kernels import recurrent_scan as RS
+        from repro_torch.kernels import ref
+        rows = {}
+        for T in (1, 128):
+            nn = torch.full((8,), T, dtype=torch.int32, device=self.dev)
+            B, H, dh = 8, 40, 64
+            n_in = 5 * B * H * T * dh * 4 + H * dh * 4
+            n_state = 2 * B * H * dh * dh * 2
+            nbytes = n_in + n_state
+            sets = []
+            for _ in range(copies_for(nbytes, 16)):
+                r, k, v, logw, u = self._wkv_inputs(B, H, T, dh)
+                s0 = ref.encode_ref(self.randn(B, H, dh, dh, scale=0.5),
+                                    P16_2)
+                sets.append((r, k, v, logw, u, s0, nn))
+            flops = 5.0 * B * H * T * dh * dh
+            bnd, by = bound(nbytes, flops)
+            kw = dict(cfg_state=P16_2, posit_state=True)
+            kern = time_ms(torch, lambda *a: RS.wkv_scan(*a, **kw), sets,
+                           ITERS, "wkv_scan")
+            plain = time_ms(torch, lambda *a: RS.wkv_scan_plain(*a, **kw),
+                            sets, 3 if T > 1 else 10, "wkv_scan_plain")
+            rows[f"wkv_scan T={T}"] = dict(ms=kern, plain_ms=plain,
+                                           bound_ms=bnd, bound_by=by)
+            if T == 1:
+                self.record("wkv_scan", shape="one rwkv6-3b layer, decode "
+                            "step: B=8, H=40, dh=64, p16 state",
+                            ms=kern, plain_ms=plain, library_ms=None,
+                            bound_ms=bnd, bound_by=by)
+            d = 4096
+            nbytes = 3 * B * T * d * 4 + 2 * B * d * 2
+            sets = []
+            for _ in range(copies_for(nbytes, 16)):
+                a = torch.sigmoid(self.randn(B, T, d) + 2.0)
+                b = self.randn(B, T, d, scale=0.3)
+                h0 = ref.encode_ref(self.randn(B, d), P16_2)
+                sets.append((a, b, h0, nn))
+            bnd, by = bound(nbytes, 2.0 * B * T * d)
+            kern = time_ms(torch, lambda *a: RS.rglru_scan(*a, **kw), sets,
+                           ITERS, "rglru_scan")
+            plain = time_ms(torch, lambda *a: RS.rglru_scan_plain(*a, **kw),
+                            sets, 3 if T > 1 else 10, "rglru_scan_plain")
+            rows[f"rglru_scan T={T}"] = dict(ms=kern, plain_ms=plain,
+                                             bound_ms=bnd, bound_by=by)
+            if T == 1:
+                self.record("rglru_scan", shape="one recurrentgemma-9b "
+                            "layer, decode step: B=8, d=4096, p16 state",
+                            ms=kern, plain_ms=plain, library_ms=None,
+                            bound_ms=bnd, bound_by=by)
+
+        # K3/K4 at D = 256, G = 16
+        B, H, n_kv, page, D, win = 8, 16, 1, 16, 256, 2048
+        for label, lens in (("160..544", [160, 224, 300, 356, 420, 480, 512,
+                                          544]),
+                            ("8 x 2208", [2208] * 8)):
+            sl = torch.tensor(lens, dtype=torch.int32, device=self.dev)
+            W = -(-max(lens) // page)
+            P = B * W + 1
+            table = self._reclaimed_table(B, W, P, sl - 1, win, page)
+            keys = int(torch.clamp(sl, max=win).sum())
+            nbytes = 2 * keys * n_kv * D * 2 + 2 * B * H * D * 4 + B * 4
+            pools = [self._pool(P16_2, P, n_kv, page, D)
+                     for _ in range(copies_for(nbytes, 8))]
+            q = self.randn(B, H, D)
+            sets = [(q, kp, vp, table, sl) for kp, vp in pools]
+            bnd, by = bound(nbytes, 4.0 * keys * H * D)
+            kern = time_ms(torch, lambda *a: F.paged_flash_decode(
+                *a, cfg_kv=P16_2, window=win), sets, ITERS,
+                "paged_flash_decode D=256")
+            plain = time_ms(torch, lambda *a: F.paged_flash_decode_plain(
+                *a, cfg_kv=P16_2, window=win), sets, 5,
+                "paged_flash_decode_plain D=256")
+            rows[f"paged_flash_decode D=256 {label}"] = dict(
+                ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
+            Sq = 128
+            qo = (sl - Sq).clamp(min=0)
+            keys = int(sum(min(int(o) + i + 1, win)
+                           for o in qo.tolist() for i in range(Sq)))
+            nbytes = (2 * int(torch.clamp(sl, max=win + Sq).sum()) * D * 2
+                      + 2 * B * H * Sq * D * 4 + 2 * B * 4)
+            qq = self.randn(B, H, Sq, D)
+            table = self._reclaimed_table(B, W, P, qo, win, page)
+            sets = [(qq, kp, vp, table, sl, qo) for kp, vp in pools]
+            bnd, by = bound(nbytes, 4.0 * keys * H * D)
+            kern = time_ms(torch, lambda *a: F.paged_flash_prefill(
+                *a, cfg_kv=P16_2, window=win), sets, ITERS,
+                "paged_flash_prefill D=256")
+            plain = time_ms(torch, lambda *a: F.paged_flash_prefill_plain(
+                *a, cfg_kv=P16_2, window=win), sets, 3,
+                "paged_flash_prefill_plain D=256")
+            rows[f"paged_flash_prefill D=256 {label}"] = dict(
+                ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
+
+        # K14 at [120, 512, 64], posit16 KV, causal
+        BH, Sq, D = 120, 512, 64
+        nbytes = 2 * BH * Sq * D * 4 + 2 * BH * Sq * D * 2
+        sets, lib_sets = [], []
+        for _ in range(copies_for(nbytes, 16)):
+            q = self.randn(BH, Sq, D)
+            k, v = self.randn(BH, Sq, D), self.randn(BH, Sq, D)
+            sets.append((q, ref.encode_ref(k, P16_2),
+                         ref.encode_ref(v, P16_2)))
+            lib_sets.append((q[None], k[None], v[None]))
+        bnd, by = bound(nbytes, 4.0 * BH * Sq * (Sq + 1) / 2 * D)
+        kern = time_ms(torch, lambda *a: F.flash_attention(
+            *a, cfg_kv=P16_2), sets, ITERS, "flash_attention")
+        plain = time_ms(torch, lambda *a: F.flash_attention_plain(
+            *a, cfg_kv=P16_2), sets, 5, "flash_attention_plain")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = time_ms(torch, lambda q, k, v: sdpa(q, k, v, is_causal=True),
+                      lib_sets, ITERS, "sdpa")
+        self.record("flash_attention", shape="[120, 512, 64] (8 x 15 heads), "
+                    "causal, p16 KV", ms=kern, plain_ms=plain,
+                    library_ms=lib, bound_ms=bnd, bound_by=by)
+        self.details["recurrent_kernel_times"] = rows
+        card = self.details["gpu"]
+        for name, rec in rows.items():
+            log(f"[time] {name}: {rec['ms']:.4f} ms (plain "
+                f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} by "
+                f"{rec['bound_by']}) ({card})")
+        log(f"[time] flash_attention: {kern:.4f} ms (plain {plain:.4f}, "
+            f"SDPA {lib:.4f}, bound {bnd:.4f} by {by}) ({card})")
+
+    def check_recurrent_logits(self, arch, n_layers):
+        """Card vs CPU at full width and depth `n_layers`: the posit16 PTQ
+        weights made on the card, a 4 x 32-token paged prefill and one
+        decode step, the kernels on the card and the plain versions on the
+        CPU; logits within LOGITS_TOL of the largest, and the state
+        patterns that differ reported (a last-bit difference of the GEMMs'
+        sums that straddles a posit rounding flips a pattern, which the
+        state carries on).  The CPU side takes the weights decoded on the
+        card (the codec is bit-exact, phase 2) as f32 tables, with the KV
+        and state policy kept: its plain GEMMs multiply the same values
+        the plain posit GEMM would decode, without decoding 1.7 B weights
+        (recurrentgemma's 256,000 x 4,096 table among them) in every
+        call."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.core.types import P16_2
+        from repro_torch.models.transformer import (assemble_paged_caches,
+                                                    extract_paged_pages,
+                                                    forward, init_params,
+                                                    init_paged_pages)
+        from repro_torch.quant.policy import PositPolicy
+        from repro_torch.quant.ptq import quantize_for_serving
+        cfg = dataclasses.replace(configs.get_config(
+            arch, policy=PositPolicy(weights=P16_2, kv_cache=P16_2)),
+            n_layers=n_layers)
+        params = init_params(cfg, seed=0, device=self.dev)
+        qparams = quantize_for_serving(params, P16_2)
+        del params
+        rng = np.random.default_rng(5)
+        B, S, page, W = 4, 32, 16, 3
+        toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+
+        def run(params, cfg, dev):
+            t = torch.from_numpy(toks).to(dev)
+            pages = init_paged_pages(cfg, 1 + B * W, page, max_seqs=B,
+                                     device=dev)
+            table = (1 + torch.arange(B * W, dtype=torch.int32,
+                                      device=dev)).reshape(B, W)
+            z = torch.zeros(B, dtype=torch.int32, device=dev)
+            with torch.inference_mode():
+                c = assemble_paged_caches(pages, table, z, z + S)
+                l1, _, c = forward(params, cfg, tokens=t[:, :S], caches=c)
+                c = assemble_paged_caches(extract_paged_pages(c), table,
+                                          z + S, z + 1)
+                l2, _, c = forward(params, cfg, tokens=t[:, S:], caches=c)
+            states = [{k: getattr(v, "bits", v).cpu() for k, v in
+                       layer.items()} for layer in
+                      extract_paged_pages(c)["layers"]
+                      if "k_pages" not in layer]
+            return torch.cat([l1, l2], dim=1).float().cpu(), states
+
+        gpu, g_states = run(qparams, cfg, self.dev)
+
+        def decoded(tree):
+            if isinstance(tree, dict):
+                return {k: decoded(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [decoded(v) for v in tree]
+            return getattr(tree, "to_f32", lambda: tree)().cpu()
+
+        cpu_params = decoded(qparams)
+        del qparams
+        torch.cuda.empty_cache()
+        cpu_cfg = dataclasses.replace(cfg, policy=PositPolicy(
+            kv_cache=P16_2))
+        t0 = time.perf_counter()
+        cpu, c_states = run(cpu_params, cpu_cfg, "cpu")
+        cpu_s = time.perf_counter() - t0
+        rel = float((gpu - cpu).abs().max() / cpu.abs().max())
+        n_diff = n_all = far = 0
+        for gs, cs in zip(g_states, c_states):
+            for key in gs:
+                d = (gs[key].long() - cs[key].long()).abs()
+                n_diff += int((d > 0).sum())
+                n_all += d.numel()
+                far = max(far, int(d.max()))
+        same = bool((gpu.argmax(-1) == cpu.argmax(-1)).all())
+        self.details[f"{arch}_logits"] = {
+            "n_layers": n_layers, "rel_err": rel, "cpu_s": cpu_s,
+            "state_patterns_differing": n_diff, "state_patterns": n_all,
+            "state_max_pattern_distance": far, "argmax_equal": same}
+        log(f"[check] {arch} full width, depth {n_layers}: logits card vs "
+            f"CPU max|diff|/max|logit| = {rel:.3e} (tol {LOGITS_TOL}); "
+            f"argmax equal: {same}; state patterns differing {n_diff} of "
+            f"{n_all} (max {far} apart); CPU side {cpu_s:.1f} s")
+        if not (np.isfinite(rel) and rel <= LOGITS_TOL):
+            raise AssertionError(f"{arch} logits disagree")
+
     def _to(self, tree, dev):
         if isinstance(tree, dict):
             return {k: self._to(v, dev) for k, v in tree.items()}
@@ -2267,6 +2765,8 @@ DW_PER_STEP = [64, 64, 64, 32, 1]
 MOE_E, MOE_K = 64, 8
 MOE_TRAIN_LAYERS = 4
 MOE_SHAPES = [("up/gate", 2048, 1024), ("down", 1024, 2048)]
+# recurrentgemma-9b's drain adds requests past its 2,048-token window
+LONG_PROMPT = 2176
 TRAINING_KERNELS = ("flash_prefill", "flash_prefill_bwd_dq",
                     "flash_prefill_bwd_dkv", "posit_gemm_transpose_a")
 SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
@@ -2274,21 +2774,36 @@ SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
 
 def serving_launches(cfg, prefill_steps: int, decode_steps: int):
     """The launches one drain of `cfg` must make, and those of them that
-    the PTQ makes (not per step).  Per layer and step: the paged append
-    and attention, and the GEMMs (dense: 7 `pw_gemm`; MoE: 4 `pw_gemm`,
-    the f32 router's `posit_gemm` after its posit round trip, one encode
-    and one decode, and 3 `grouped_gemm`); per step the unembedding and
-    the embedding rows' decode; the PTQ encodes every weight table."""
+    the PTQ makes (not per step).  Per attention layer and step: the paged
+    append and attention, and the GEMMs (dense: 7 `pw_gemm`; MoE: 4
+    `pw_gemm`, the f32 router's `posit_gemm` after its posit round trip,
+    one encode and one decode, and 3 `grouped_gemm`).  Per rwkv6 layer and
+    step: 8 `pw_gemm` (5 time-mix, 3 channel-mix projections), the WKV
+    scan, and 4 encodes and 4 decodes (two token shifts decoded from the
+    pool, round-tripped at use and stored back).  Per rglru layer and step:
+    8 `pw_gemm` (5 block projections, 3 MLP), the RG-LRU scan, 2 encodes
+    and 2 decodes (the conv tail: decoded, round-tripped, stored).  Per
+    step the unembedding and the embedding rows' decode; the PTQ encodes
+    every weight table."""
     L = cfg.n_layers
     steps = prefill_steps + decode_steps
-    tables = 7 * L + 1
-    expect = {"paged_flash_decode": L * decode_steps,
-              "paged_flash_prefill": L * prefill_steps,
-              "paged_append": L * steps}
+    kinds = [cfg.kind(i) for i in range(L)]
+    n_attn = sum(k in ("attn", "attn_local") for k in kinds)
+    n_rwkv, n_rg = kinds.count("rwkv6"), kinds.count("rglru")
+    tables = 7 * n_attn + 8 * (n_rwkv + n_rg) + 1
+    codec = 4 * n_rwkv + 2 * n_rg            # encodes (= decodes) per step
+    expect = {"paged_flash_decode": n_attn * decode_steps,
+              "paged_flash_prefill": n_attn * prefill_steps,
+              "paged_append": n_attn * steps,
+              "wkv_scan": n_rwkv * steps, "rglru_scan": n_rg * steps}
     if cfg.moe is None:
-        expect.update(pw_gemm=tables * steps, decode_block=steps,
-                      encode_block=tables)
+        expect.update(pw_gemm=tables * steps,
+                      decode_block=(1 + codec) * steps,
+                      encode_block=tables + codec * steps)
     else:
+        if n_rwkv or n_rg:
+            raise NotImplementedError("MoE launch structure is for "
+                                      "attention stacks")
         expect.update(pw_gemm=(4 * L + 1) * steps, posit_gemm=L * steps,
                       grouped_gemm=3 * L * steps,
                       decode_block=(L + 1) * steps,
@@ -2354,6 +2869,12 @@ KERNEL_META = {
                      "src/repro/kernels/grouped_gemm.py:146"),
     "grouped_gemm_dw": ("src/repro_torch/csrc/grouped_gemm.cu",
                         "src/repro/kernels/grouped_gemm.py:272"),
+    "wkv_scan": ("src/repro_torch/csrc/recurrent_scan.cu",
+                 "src/repro/kernels/recurrent_scan.py:107"),
+    "rglru_scan": ("src/repro_torch/csrc/recurrent_scan.cu",
+                   "src/repro/kernels/recurrent_scan.py:203"),
+    "flash_attention": ("src/repro_torch/csrc/flash_prefill.cu",
+                        "src/repro/kernels/flash_attention.py:710"),
 }
 
 
@@ -2468,6 +2989,39 @@ def main() -> int:
     t0 = time.perf_counter()
     s.train_moe_deterministic()
     log(f"[phase] MoE determinism {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s.check_recurrent_kernels()
+    s.check_attention_d256()
+    s.check_flash_attention()
+    torch.cuda.empty_cache()
+    s.time_recurrent_kernels()
+    torch.cuda.empty_cache()
+    attn_launches = s.attention_entry()
+    s.record("flash_attention", launches=attn_launches["flash_attention"])
+    log(f"[phase] recurrent kernels {time.perf_counter() - t0:.1f} s")
+    rec_launches = {}
+    for arch, key, scan, extra in (
+            ("rwkv6-3b", "rwkv_serving", "wkv_scan", 0),
+            ("recurrentgemma-9b", "rg_serving", "rglru_scan", 2)):
+        t0 = time.perf_counter()
+        qparams, cfg, reqs = s.serve(arch, key=key, long_prompts=extra)
+        rec_launches[scan] = s.details[key]["launches"][scan]
+        s.record(scan, launches=rec_launches[scan])
+        log(f"[phase] {arch} serving {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        s.trace_decode(qparams, cfg, reqs, key=f"{key}_trace")
+        del qparams
+        torch.cuda.empty_cache()
+        log(f"[phase] {arch} decode trace {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s.check_recurrent_logits("rwkv6-3b", 2)
+    torch.cuda.empty_cache()
+    s.check_recurrent_logits("recurrentgemma-9b", 3)
+    torch.cuda.empty_cache()
+    s.check_smoke_drain("rwkv6-3b")
+    s.check_smoke_drain("recurrentgemma-9b")
+    log(f"[phase] recurrent output checks {time.perf_counter() - t0:.1f} s")
 
     s.details["timings_with_host_gaps"] = HOST_GAPS
     rows = []
@@ -2486,18 +3040,25 @@ def main() -> int:
     # the main paths' own counts: the serving kernels read right after the
     # counted drain, the arithmetic kernels right after the counted pnp run,
     # the training kernels right after the counted 8-step p16 run, K10 after
-    # the counted MoE drain and K11 after the counted MoE training run
+    # the counted MoE drain, K11 after the counted MoE training run, K12 and
+    # K13 after the counted rwkv6 and recurrentgemma drains, K14 after the
+    # counted ops.attention calls
     log("kernels: " + json.dumps({
         **s.details["serving"]["launches"], **arith_launches,
         **train_launches,
         "grouped_gemm": s.kernels["grouped_gemm"]["launches"],
-        "grouped_gemm_dw": s.kernels["grouped_gemm_dw"]["launches"]}))
+        "grouped_gemm_dw": s.kernels["grouped_gemm_dw"]["launches"],
+        **rec_launches, **attn_launches}))
     log("kernels (training main path, 8 p16 steps): "
         + json.dumps(legs["p16"]["launches"]))
     log("kernels (MoE serving main path, the drain): "
         + json.dumps(s.details["moe_serving"]["launches"]))
     log("kernels (MoE training main path, 8 p16 steps at depth "
         f"{MOE_TRAIN_LAYERS}): " + json.dumps(moe_leg["launches"]))
+    log("kernels (rwkv6-3b serving main path, the drain): "
+        + json.dumps(s.details["rwkv_serving"]["launches"]))
+    log("kernels (recurrentgemma-9b serving main path, the drain): "
+        + json.dumps(s.details["rg_serving"]["launches"]))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

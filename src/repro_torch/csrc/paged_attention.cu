@@ -27,7 +27,20 @@
 // masked keys are skipped, never multiplied: positions at or past seq_len
 // are never read.  A row that sees no key has l == 0 and gives 0 (the
 // reference's -1e30 masking averages the masked values instead; the
-// engine never reads such rows).
+// engine never reads such rows).  A key outside a row's masks never enters
+// its arithmetic, so a page the table points at but no row may see (the
+// garbage page behind a reclaimed sliding window, even full of NaR
+// patterns) cannot reach the output.
+//
+// head_dim 256 (recurrentgemma's MQA: G = 16 query heads on one kv head).
+// K3 keeps its shared-memory layout (66,880 B at D = 256, G = 16: opted in
+// above 48 KB).  K4 keeps q and the accumulator of a row in registers; at
+// D = 256 one thread cannot (512 floats), so the split form spreads each
+// row over NS = 4 neighbouring lanes of a warp, each owning the dimensions
+// d = i * NS + lane (i < 64), and sums a dot product's four partials with
+// a butterfly of warp shuffles (every lane ends with the same bits: float
+// addition commutes).  At most 256 threads a block: G * NS * bq threads,
+// bq = 256 / (G * NS) query rows per head (4 at G = 16).
 #include <cfloat>
 #include "posit_codec.cuh"
 
@@ -247,6 +260,134 @@ __global__ void paged_prefill_kernel(
   }
 }
 
+// Dynamic shared memory above 48 KB needs an opt-in per kernel.
+template <typename K>
+cudaError_t allow_shmem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// ---- K4, split form for 128 < D <= 64 * NS --------------------------------
+// A kernel of its own, so that K4 at D <= 128 keeps its launch shape and
+// registers.  Thread tid: lane = tid % NS of row r = tid / NS; head
+// g = r / bq, query row qt * bq + r % bq.  Shared memory as in K4:
+// k [page*D], v [page*D], s [page*threads].
+constexpr int kSplitThreads = 256;
+constexpr int kSplitDs = 64;          // dimensions per lane
+
+template <int NS>
+__device__ __forceinline__ float row_sum(float x, unsigned mask) {
+#pragma unroll
+  for (int off = NS / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(mask, x, off);
+  return x;
+}
+
+template <typename T, int NS>
+__global__ void __launch_bounds__(kSplitThreads) paged_prefill_split_kernel(
+    const float* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ page_table,
+    const int* __restrict__ seq_lens, const int* __restrict__ q_offset,
+    float* __restrict__ out, int H, int n_kv, int Sq, int page, int D, int W,
+    int num_pages, int causal, int window, float softcap, float scale, int n,
+    int es, int bq) {
+  extern __shared__ float smem[];
+  const int G = H / n_kv;
+  const int nt = blockDim.x;                     // == G * bq * NS
+  const int tid = threadIdx.x;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  float* k_s = smem;
+  float* v_s = k_s + page * D;
+  float* s_s = v_s + page * D;                   // [page][nt]
+
+  const int lane = tid % NS;
+  const int r = tid / NS;
+  const int g = r / bq;
+  const int row = qt * bq + r % bq;
+  const int head = h * G + g;
+  const bool live = row < Sq;
+  const int qo = q_offset[b];
+  const int qpos = qo + row;
+  const int sl = seq_lens[b];
+  // the NS lanes of this row: same warp, same control flow
+  const unsigned mask = ((1u << NS) - 1u) << ((tid % 32) / NS * NS);
+
+  float qr[kSplitDs], acc[kSplitDs];
+  const size_t qbase = ((static_cast<size_t>(b) * H + head) * Sq + row) * D;
+#pragma unroll
+  for (int i = 0; i < kSplitDs; ++i) {
+    const int d = i * NS + lane;
+    qr[i] = (live && d < D) ? q[qbase + d] : 0.0f;
+    acc[i] = 0.0f;
+  }
+  float m = kNeg, l = 0.0f;
+
+  const int q_first = qo + qt * bq;
+  const int q_last = qo + min(qt * bq + bq, Sq) - 1;
+  int kv_hi = sl;
+  if (causal) kv_hi = min(kv_hi, q_last + 1);
+  kv_hi = min(kv_hi, W * page);
+  const int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
+
+  for (int j = kv_lo / page; j * page < kv_hi; ++j) {
+    const int pg = page_table[b * W + j];
+    if (pg >= 0 && pg < num_pages) {
+      const size_t base = (static_cast<size_t>(pg) * n_kv + h) * page * D;
+      const int n_valid = min(kv_hi - j * page, page) * D;
+      for (int i = tid; i < n_valid; i += nt) {
+        k_s[i] = load_value<T>(k_pages, base + i, n, es);
+        v_s[i] = load_value<T>(v_pages, base + i, n, es);
+      }
+    }
+    __syncthreads();
+    int k_lo = j * page, k_hi = min(j * page + page, sl);
+    if (causal) k_hi = min(k_hi, qpos + 1);
+    if (window > 0) k_lo = max(k_lo, qpos - window + 1);
+    if (!live || !(pg >= 0 && pg < num_pages)) k_hi = k_lo;
+    const int p_lo = k_lo - j * page, p_hi = k_hi - j * page;
+    if (p_lo < p_hi) {
+      float mx = m;
+      for (int p = p_lo; p < p_hi; ++p) {
+        float dot = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kSplitDs; ++i) {
+          const int d = i * NS + lane;
+          if (d < D) dot = fmaf(qr[i], k_s[p * D + d], dot);
+        }
+        float s = row_sum<NS>(dot, mask) * scale;
+        if (softcap > 0.0f) s = tanhf(s / softcap) * softcap;
+        s_s[p * nt + tid] = s;
+        mx = fmaxf(mx, s);
+      }
+      const float alpha = expf(m - mx);
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < kSplitDs; ++i) acc[i] *= alpha;
+      for (int p = p_lo; p < p_hi; ++p) {
+        const float e = expf(s_s[p * nt + tid] - mx);
+        l += e;
+#pragma unroll
+        for (int i = 0; i < kSplitDs; ++i) {
+          const int d = i * NS + lane;
+          if (d < D) acc[i] = fmaf(e, v_s[p * D + d], acc[i]);
+        }
+      }
+      m = mx;
+    }
+    __syncthreads();
+  }
+  if (live) {
+    const float inv = l > 0.0f ? 1.0f / l : 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSplitDs; ++i) {
+      const int d = i * NS + lane;
+      if (d < D) out[qbase + d] = l > 0.0f ? acc[i] * inv : 0.0f;
+    }
+  }
+}
+
 template <typename T>
 int launch_decode(const void* q, const void* kp, const void* vp,
                   const int* pt, const int* sl, float* out, int B, int H,
@@ -255,6 +396,8 @@ int launch_decode(const void* q, const void* kp, const void* vp,
   const int G = H / n_kv;
   const size_t shmem = sizeof(float) * (2 * G * D + CH * (2 * D + 1)
                                         + G * CH + 3 * G) + sizeof(int) * CH;
+  cudaError_t e = allow_shmem(paged_decode_kernel<T>, shmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(n_kv, B);
   paged_decode_kernel<T><<<grid, 256, shmem, st>>>(
       static_cast<const float*>(q), static_cast<const T*>(kp),
@@ -272,11 +415,35 @@ int launch_prefill_d(const void* q, const void* kp, const void* vp,
   const int G = H / n_kv;
   const int nt = G * BQ;
   const size_t shmem = sizeof(float) * (2 * page * D + page * nt);
+  cudaError_t e = allow_shmem(paged_prefill_kernel<T, DMAX>, shmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((Sq + BQ - 1) / BQ, n_kv, B);
   paged_prefill_kernel<T, DMAX><<<grid, nt, shmem, st>>>(
       static_cast<const float*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), pt, sl, qo, out, H, n_kv, Sq, page, D, W,
       num_pages, causal, window, softcap, scale, n, es);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NS>
+int launch_prefill_split(const void* q, const void* kp, const void* vp,
+                         const int* pt, const int* sl, const int* qo,
+                         float* out, int B, int H, int n_kv, int Sq, int page,
+                         int D, int W, int num_pages, int causal, int window,
+                         float softcap, float scale, int n, int es,
+                         cudaStream_t st) {
+  const int G = H / n_kv;
+  const int bq = kSplitThreads / (G * NS);
+  if (bq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = G * bq * NS;
+  const size_t shmem = sizeof(float) * (2 * page * D + page * nt);
+  cudaError_t e = allow_shmem(paged_prefill_split_kernel<T, NS>, shmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((Sq + bq - 1) / bq, n_kv, B);
+  paged_prefill_split_kernel<T, NS><<<grid, nt, shmem, st>>>(
+      static_cast<const float*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), pt, sl, qo, out, H, n_kv, Sq, page, D, W,
+      num_pages, causal, window, softcap, scale, n, es, bq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,6 +465,10 @@ int launch_prefill(const void* q, const void* kp, const void* vp,
     return launch_prefill_d<T, 128>(q, kp, vp, pt, sl, qo, out, B, H, n_kv,
                                     Sq, page, D, W, num_pages, causal, window,
                                     softcap, scale, n, es, st);
+  if (D <= kSplitDs * 4)
+    return launch_prefill_split<T, 4>(q, kp, vp, pt, sl, qo, out, B, H, n_kv,
+                                      Sq, page, D, W, num_pages, causal,
+                                      window, softcap, scale, n, es, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -65,6 +65,10 @@ SIGNATURES = {
         "posit_grouped_gemm": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),
         "posit_grouped_gemm_dw": (_P, _P, _P, _P) + (_I,) * 4 + (_P,),
     },
+    "recurrent_scan": {
+        "wkv_scan": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "rglru_scan": (_P,) * 6 + (_I,) * 6 + (_P,),
+    },
 }
 
 # storage dtype -> the PositDtype code of csrc/posit_codec.cuh

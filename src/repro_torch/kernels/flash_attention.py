@@ -1,6 +1,7 @@
 """K3/K4: paged decode and paged prefill attention
 (``csrc/paged_attention.cu``); K7-K9: the contiguous flash prefill with its
-log-sum-exp and its backward (``csrc/flash_prefill.cu``).
+log-sum-exp and its backward, and K14, the [BH, Sq, D] attention
+(``csrc/flash_prefill.cu``).
 
 `paged_flash_decode` replaces ``repro/kernels/flash_attention.py::
 paged_flash_decode`` (:650), `paged_flash_prefill` replaces
@@ -8,7 +9,10 @@ paged_flash_decode`` (:650), `paged_flash_prefill` replaces
 ``::flash_prefill_contiguous`` (:332) and `flash_prefill_bwd_contiguous`
 ``::flash_prefill_bwd_contiguous`` (:552), whose two passes are the
 separately counted `flash_prefill_bwd_dq` and `flash_prefill_bwd_dkv`.
-The rectangular `flash_attention` is later work.  Rows that see no key
+`flash_attention` (K14) replaces ``::flash_attention`` (:710; pallas_call
+at :738): the same function as K7 with one kv head per query head,
+kv_len = Skv and q_offset = Skv - Sq, so it launches K7's forward.  Rows
+that see no key
 (l == 0) come back 0 from the kernels; the paged plain versions keep the
 reference's -1e30 masking there, the contiguous ones give 0 as well.
 """
@@ -19,7 +23,8 @@ import torch
 from repro_torch.core.types import PositConfig
 from repro_torch.kernels import build, ref
 
-_MAX_SHARED = 48 * 1024       # static-launch limit without opt-in
+_MAX_SHARED = 232448          # a block's dynamic shared memory (opted in)
+_SPLIT_NS, _SPLIT_THREADS = 4, 256   # K4's split form for 128 < D <= 256
 
 
 def _pool_dtype(k_pages, v_pages, cfg_kv):
@@ -118,10 +123,16 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, seq_lens, q_offset,
     B, H, Sq, D = q.shape
     P, n_kv, page, _ = k_pages.shape
     G = H // n_kv
-    if H % n_kv or D != k_pages.shape[3] or D > 128 or G > 32:
+    if (H % n_kv or D != k_pages.shape[3] or D > 256 or G > 32
+            or (D > 128 and G * _SPLIT_NS > _SPLIT_THREADS)):
         raise ValueError("paged_flash_prefill: needs H % n_kv == 0, "
-                         "D <= 128 and at most 32 query heads per kv head")
-    shmem = 4 * (2 * page * D + page * G * 32)
+                         "D <= 256 and at most 32 query heads per kv head "
+                         "(16 above D = 128)")
+    if D <= 128:
+        threads = G * 32
+    else:
+        threads = G * _SPLIT_NS * (_SPLIT_THREADS // (G * _SPLIT_NS))
+    shmem = 4 * (2 * page * D + page * threads)
     if shmem > _MAX_SHARED:
         raise ValueError(f"paged_flash_prefill: {shmem} B of shared memory "
                          f"exceeds {_MAX_SHARED}")
@@ -350,11 +361,58 @@ def flash_prefill_bwd_contiguous(q, k, v, o, lse, do, kv_len, q_offset, *,
                 do, kv_len, q_offset, cfg_kv, causal, window, softcap)
 
 
+# ---- K14: [BH, Sq, D] attention, queries at the last Sq positions ------
+def flash_attention_plain(q, k, v, *, cfg_kv: PositConfig | None = None,
+                          causal=True):
+    flash_attention_plain.calls += 1
+    return ref.flash_attention_ref(q, k, v, cfg_kv=cfg_kv, causal=causal)
+
+
+def flash_attention(q, k, v, *, cfg_kv: PositConfig | None = None,
+                    causal=True):
+    """K14: q [BH, Sq, D] f32 over k/v [BH, Skv, D] (f32, or posit ints of
+    cfg_kv decoded in the kernel) -> [BH, Sq, D] f32; causal puts the
+    queries at the last Sq positions.  K7's forward with H = n_kv = 1 per
+    batch row, kv_len = Skv and q_offset = Skv - Sq; D <= 128."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, cfg_kv=cfg_kv, causal=causal)
+    lib = build.library("flash_prefill")
+    dt = _kv_dtype(k, v, cfg_kv)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention: q must be float32, got {q.dtype}")
+    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: want q [BH,Sq,D] and k, v "
+                         f"[BH,Skv,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    if D > 128 or D % 4:
+        raise ValueError(f"flash_attention: head_dim {D}: the kernel takes "
+                         f"D <= 128 with D % 4 == 0")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    kv_len = torch.full((BH,), Skv, dtype=torch.int32, device=q.device)
+    q_off = torch.full((BH,), Skv - Sq, dtype=torch.int32, device=q.device)
+    build.check_cuda_tensors("flash_attention", q, k, v, kv_len, q_off)
+    out = torch.empty_like(q)
+    if BH == 0 or Sq == 0:
+        return out
+    n, es = (cfg_kv.n, cfg_kv.es) if cfg_kv is not None else (0, 0)
+    rc = lib.flash_prefill_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        q_off.data_ptr(), out.data_ptr(), None, BH, 1, 1, Sq, Skv, D,
+        int(causal), 0, 0.0, float(D ** -0.5), build.DTYPE_CODE[dt], n, es,
+        build.stream(q))
+    flash_attention.launches += 1
+    build.check_launch(rc, "flash_prefill_fwd")
+    return out
+
+
 for _fn in (paged_flash_decode, paged_flash_prefill,
             flash_prefill_contiguous, flash_prefill_bwd_dq,
-            flash_prefill_bwd_dkv):
+            flash_prefill_bwd_dkv, flash_attention):
     _fn.launches = 0
 for _fn in (paged_flash_decode_plain, paged_flash_prefill_plain,
             flash_prefill_contiguous_plain, flash_prefill_bwd_dq_plain,
-            flash_prefill_bwd_dkv_plain):
+            flash_prefill_bwd_dkv_plain, flash_attention_plain):
     _fn.calls = 0

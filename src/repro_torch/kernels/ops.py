@@ -1,9 +1,10 @@
 """Kernel dispatch for the model, serving and arithmetic code.
 
 The counterpart of ``repro/kernels/ops.py``: `pw_matmul`, `decode`/`encode`,
-the paged attention entry points, the contiguous `flash_prefill` and its
-backward `flash_prefill_bwd`, the MoE's differentiable `grouped_matmul`,
-and the posit arithmetic of ``repro.pnp``
+the paged attention entry points, the [BH, Sq, D] `attention`, the
+contiguous `flash_prefill` and its backward `flash_prefill_bwd`, the MoE's
+differentiable `grouped_matmul`, the recurrent scans `wkv_scan` and
+`rglru_scan` of the serving path, and the posit arithmetic of ``repro.pnp``
 (`elementwise`, `divide`, `gemm`; `gemm` on float operands is
 differentiable, its backward two more GEMM launches).  The device of the
 operands decides: CPU tensors take the plain versions, CUDA tensors the
@@ -29,6 +30,7 @@ from repro_torch.kernels import grouped_gemm as _ggemm
 from repro_torch.kernels import posit_codec as _codec
 from repro_torch.kernels import posit_elementwise as _ew
 from repro_torch.kernels import posit_gemm as _gemm
+from repro_torch.kernels import recurrent_scan as _rs
 from repro_torch.kernels import ref as _ref
 
 # name -> (kernel wrapper, plain version); wrappers count `.launches`,
@@ -55,6 +57,9 @@ KERNELS = {
                      _ggemm.posit_grouped_gemm_plain),
     "grouped_gemm_dw": (_ggemm.posit_grouped_gemm_dw,
                         _ggemm.posit_grouped_gemm_dw_plain),
+    "wkv_scan": (_rs.wkv_scan, _rs.wkv_scan_plain),
+    "rglru_scan": (_rs.rglru_scan, _rs.rglru_scan_plain),
+    "flash_attention": (_fa.flash_attention, _fa.flash_attention_plain),
 }
 
 
@@ -127,6 +132,22 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     kb, vb, cfg = _unwrap_pages(k_pages, v_pages)
     return _fa.paged_flash_decode(q, kb, vb, page_table, seq_lens,
                                   cfg_kv=cfg, window=window)
+
+
+def attention(q, k, v, *, cfg_kv: PositConfig | None = None,
+              causal: bool = True) -> torch.Tensor:
+    """[BH, Sq, D] attention over (PositArray or float) k/v [BH, Skv, D];
+    causal puts the queries at the last Sq positions (K14)."""
+    if isinstance(q, PositArray):
+        raise TypeError("q must be a float tensor (queries are "
+                        "activations); only the KV may be posit")
+    kb, vb, cfg = _unwrap_pages(k, v)
+    if cfg is not None and cfg_kv is not None and cfg != cfg_kv:
+        raise PositConfigMismatchError(
+            f"explicit cfg {cfg_kv} contradicts operand format {cfg}")
+    cfg = cfg if cfg is not None else cfg_kv
+    return _fa.flash_attention(q.to(torch.float32), kb, vb, cfg_kv=cfg,
+                               causal=causal)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_table, seq_lens,
@@ -382,3 +403,47 @@ def grouped_matmul(x: torch.Tensor, w, group_offsets: torch.Tensor, *,
         w = w.to(torch.float32)
     return _GroupedMM.apply(x.to(torch.float32), w,
                             group_offsets.to(torch.int32), cfg)
+
+
+# --------------------------------------------------------------------------
+# the recurrent scans of the serving path (RWKV6 WKV, RG-LRU)
+# --------------------------------------------------------------------------
+def _scan_num_new(num_new, B: int, T: int, device) -> torch.Tensor:
+    if num_new is None:
+        return torch.full((B,), T, dtype=torch.int32, device=device)
+    return torch.as_tensor(num_new, device=device).to(torch.int32)
+
+
+def wkv_scan(r, k, v, logw, u, s0, *, num_new=None,
+             cfg_state: PositConfig | None = None):
+    """RWKV6 WKV recurrence over a chunk (K12).
+
+    r/k/v/logw [B, H, T, dh] f32, u [H, dh].  s0 [B, H, dh, dh] is the
+    carried state: a PositArray (the engine's posit state pool: decoded,
+    f32-accumulated and re-encoded in the kernel) or an f32 tensor.  Under
+    a posit state format (a PositArray s0, or an explicit `cfg_state` for
+    an f32 s0) the state is round-tripped through the format after every
+    token, which makes the scan invariant to where prefill chunks split.
+    num_new [B] masks ragged chunks (None: every row takes all T tokens).
+    Returns (y [B, H, T, dh] f32, the final state in s0's representation).
+    """
+    s0_raw, cfg_state, posit_state = _split(s0, cfg_state)
+    B, _, T, _ = r.shape
+    nn = _scan_num_new(num_new, B, T, r.device)
+    y, sf = _rs.wkv_scan(r, k, v, logw, u, s0_raw, nn, cfg_state=cfg_state,
+                         posit_state=posit_state)
+    return y, PositArray(sf, cfg_state) if posit_state else sf
+
+
+def rglru_scan(a, b, h0, *, num_new=None,
+               cfg_state: PositConfig | None = None):
+    """RG-LRU recurrence h_t = rt(a_t h + b_t) over a chunk (K13); a/b
+    [B, T, d] are the batched gate projections, h0 [B, d] follows
+    `wkv_scan`'s state contract.  Returns (h_seq [B, T, d] f32, the final
+    h in h0's representation)."""
+    h0_raw, cfg_state, posit_state = _split(h0, cfg_state)
+    B, T, _ = a.shape
+    nn = _scan_num_new(num_new, B, T, a.device)
+    h, hf = _rs.rglru_scan(a, b, h0_raw, nn, cfg_state=cfg_state,
+                           posit_state=posit_state)
+    return h, PositArray(hf, cfg_state) if posit_state else hf

@@ -3,8 +3,9 @@
 Each mirrors the arithmetic of the JAX reference's jnp path (the path
 ``repro/kernels/ops.py`` dispatches on CPU): ``kernels/ref.py`` for the
 GEMM, the codec and the posit arithmetic, ``serving/paged_kv.py`` for the
-append and the page gather, and ``models/blocks.py::_blockwise_jnp`` for
-attention.  The kernel modules
+append and the page gather, ``models/blocks.py::_blockwise_jnp`` for
+attention, and ``kernels/recurrent_scan.py``'s `*_ref` scans for the
+recurrent state updates.  The kernel modules
 call these for CPU tensors; ``chip_smoke.py`` holds each kernel against
 them on the card.
 """
@@ -342,3 +343,89 @@ def flash_prefill_bwd_ref(q, k, v, o, lse, do, kv_len, q_offset, *,
     return flash_prefill_bwd_parts(
         q, k, v, do, lse, delta, kv_len, q_offset, cfg_kv=cfg_kv,
         causal=causal, window=window, softcap=softcap, dkv=cfg_kv is None)
+
+
+def flash_attention_ref(q, k, v, *, cfg_kv: PositConfig | None = None,
+                        causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention: q [BH, Sq, D] f32 over k/v [BH, Skv, D]
+    (f32, or posit ints of cfg_kv); causal puts the queries at the last Sq
+    positions of the Skv context."""
+    qf = q.float()
+    kf, vf = values(k, cfg_kv), values(v, cfg_kv)
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) / (d ** 0.5)
+    if causal:
+        sq, skv = q.shape[1], k.shape[1]
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, _NEG)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bqk,bkd->bqd", p, vf)
+
+
+# --------------------------------------------------------------------------
+# recurrent scans of the serving path (RWKV6 WKV, RG-LRU)
+# --------------------------------------------------------------------------
+def rt(x: torch.Tensor, cfg: PositConfig | None) -> torch.Tensor:
+    """Posit round trip decode(encode(x)); identity when cfg is None."""
+    if cfg is None:
+        return x
+    return decode_to_f32(f32_to_posit(x, cfg), cfg)
+
+
+def _load_state(s: torch.Tensor, cfg: PositConfig | None,
+               posit_state: bool) -> torch.Tensor:
+    return decode_to_f32(s, cfg) if posit_state else s.float()
+
+
+def _store_state(s: torch.Tensor, cfg: PositConfig | None,
+                posit_state: bool) -> torch.Tensor:
+    return f32_to_posit(s, cfg) if posit_state else s
+
+
+def wkv_scan_ref(r, k, v, logw, u, s0, num_new, *,
+                 cfg_state: PositConfig | None, posit_state: bool):
+    """RWKV6 WKV over T tokens: r/k/v/logw [B, H, T, dh] f32, u [H, dh],
+    s0 [B, H, dh, dh] (posit ints of cfg_state when posit_state, else
+    f32), num_new [B] int -> (y [B, H, T, dh] f32, the final state in s0's
+    representation).  Per token: y = r.S + (sum r u k) v, then S <-
+    rt(exp(logw) S + k^T v); tokens t >= num_new[b] leave S as it is and
+    give y = 0.  The update is three separately rounded f32 operations,
+    which is what the kernel computes."""
+    S = _load_state(s0, cfg_state, posit_state)
+    uf = u.float()
+    nn = num_new.to(r.device)
+    ys = []
+    for t in range(r.shape[2]):
+        r_t, k_t = r[:, :, t].float(), k[:, :, t].float()
+        v_t, w_t = v[:, :, t].float(), logw[:, :, t].float()
+        y = torch.einsum("bhd,bhdv->bhv", r_t, S)
+        su = torch.einsum("bhd,hd,bhd->bh", r_t, uf, k_t)
+        y = y + su[..., None] * v_t
+        S_new = torch.exp(w_t)[..., None] * S + k_t[..., None] * \
+            v_t[:, :, None, :]
+        S_new = rt(S_new, cfg_state)
+        live = t < nn
+        S = torch.where(live[:, None, None, None], S_new, S)
+        ys.append(torch.where(live[:, None, None], y, 0.0))
+    y = torch.stack(ys, dim=2) if ys else torch.zeros_like(r.float())
+    return y, _store_state(S, cfg_state, posit_state)
+
+
+def rglru_scan_ref(a, b, h0, num_new, *, cfg_state: PositConfig | None,
+                   posit_state: bool):
+    """RG-LRU over T tokens: a/b [B, T, d] f32, h0 [B, d] -> (h_seq [B, T,
+    d] f32, the final h in h0's representation); h <- rt(a h + b), a
+    product then a sum, each rounded; tokens t >= num_new[b] leave h and
+    give 0."""
+    h = _load_state(h0, cfg_state, posit_state)
+    nn = num_new.to(a.device)
+    ys = []
+    for t in range(a.shape[1]):
+        h_new = rt(a[:, t].float() * h + b[:, t].float(), cfg_state)
+        live = (t < nn)[:, None]
+        h = torch.where(live, h_new, h)
+        ys.append(torch.where(live, h_new, 0.0))
+    hs = torch.stack(ys, dim=1) if ys else torch.zeros_like(a.float())
+    return hs, _store_state(h, cfg_state, posit_state)

@@ -3,6 +3,10 @@
     python -m repro_torch.launch.serve --arch smollm-360m --engine paged \
         --batch 8 --prompt-len 512 --max-new 32 --posit p16 --requests 16
 
+``--arch`` is one of smollm-360m, olmoe-1b-7b, rwkv6-3b and
+recurrentgemma-9b (recurrent layers keep their state in posit state
+pools; recurrentgemma's windowed attention its KV in the paged pool).
+
 Same flags as ``repro/launch/serve.py`` for ``--engine paged``, plus
 ``--device {cuda,cpu}`` (default cuda).  Weights come from the port's own
 seeded init and are post-training quantized (quant/ptq.py); the traffic is
@@ -91,6 +95,12 @@ def main(argv=None):
     rng = np.random.default_rng(1)
     cap = args.prompt_len + args.max_new
     width = max(2, -(-cap // args.page_size))
+    from repro_torch.serving.backends import layout_for
+    layout = layout_for(cfg)
+    kinds = ",".join(f"{b.kind}:{b.backend}" for b in layout.backends)
+    print(f"[serve] cache backends: {kinds}; per-seq cache at "
+          f"{cap} tokens = "
+          f"{layout.cache_bytes_per_seq(cap, args.page_size) / 1e3:.1f} KB")
     eng = PagedServingEngine(params, cfg, max_seqs=args.batch,
                              page_size=args.page_size, table_width=width,
                              prefill_chunk=args.prefill_chunk,

@@ -2,10 +2,11 @@
 
 The counterpart of ``repro/models/blocks.py`` for serving and training:
 `rms_norm`, `linear`, `rope`, `blockwise_attention`, `attention_block`
-(its paged branch and its no-cache training branch), the SwiGLU
-`mlp_block`, `embed` and `unembed`.  The plain attention (the mirror of
-the reference's ``_blockwise_jnp``) lives beside the other plain
-versions, in `kernels.ref`.  Activations are float32.
+(its paged branch and its no-cache training branch), the SwiGLU and
+GeGLU `mlp_block`, `embed`, `unembed`, and the serving helpers of the
+recurrent blocks, `rt_values` and `select_last`.  The plain attention
+(the mirror of the reference's ``_blockwise_jnp``) lives beside the other
+plain versions, in `kernels.ref`.  Activations are float32.
 Posit weights arrive as `PositArray` (from `quant.ptq`) and go through the
 posit GEMM; posit KV pages are decoded inside the attention kernels.
 Float weights under a posit policy pass through `posit_cast_ste` (the
@@ -184,12 +185,45 @@ def attention_block(x, p: Params, *, n_heads: int, n_kv: int, head_dim: int,
     return linear(out, p["wo"], policy), new_cache
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default, the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def mlp_block(x, p: Params, *, act: str, policy: PositPolicy):
-    if act != "swiglu":
-        raise NotImplementedError(f"mlp act {act!r} is not ported")
     up = linear(x, p["w_up"], policy)
-    h = torch.nn.functional.silu(linear(x, p["w_gate"], policy)) * up
+    if act == "swiglu":
+        h = torch.nn.functional.silu(linear(x, p["w_gate"], policy)) * up
+    elif act == "geglu":
+        h = gelu(linear(x, p["w_gate"], policy)) * up
+    else:
+        raise NotImplementedError(f"mlp act {act!r} is not ported")
     return linear(h, p["w_down"], policy)
+
+
+# ---- stateful serving helpers of the recurrent blocks ---------------------
+def rt_values(x: torch.Tensor, pcfg) -> torch.Tensor:
+    """Posit round trip decode(encode(x)); identity when pcfg is None.
+
+    Every value that crosses a step boundary (carried state, token shifts,
+    conv tails) is used at its round-tripped value, so the computation does
+    not depend on where prefill chunks split the sequence, nor on whether
+    the state was kept as floats or as posit bits.  The round trip is
+    idempotent, so applying it at use as well as at store changes
+    nothing."""
+    if pcfg is None:
+        return x
+    return ops.decode(ops.encode(x.to(torch.float32), pcfg), pcfg)
+
+
+def select_last(x: torch.Tensor, num_new) -> torch.Tensor:
+    """x [B, S, ...] -> x[b, num_new[b] - 1], the last valid position of
+    each row (clipped into range: a row with num_new == 0 gives position
+    0, which the caller masks); num_new None: x[:, -1]."""
+    if num_new is None:
+        return x[:, -1]
+    idx = (num_new.long() - 1).clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
 def embed(tokens: torch.Tensor, p: Params, policy: PositPolicy):

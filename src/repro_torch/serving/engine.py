@@ -1,11 +1,18 @@
-"""Continuous-batching serving over the paged (posit) KV pool.
+"""Continuous-batching serving over pluggable per-layer caches.
 
 The counterpart of the scheduler core of ``repro/serving/engine.py::
 PagedServingEngine``: admission (batched), chunked prefill
 aligned to page_size, one fused decode step over all active slots,
 retirement, preemption with requeue when the pool runs dry, the
 power-of-two page-table view, greedy sampling on the device and the
-per-slot NaR flag.
+per-slot NaR flag.  Each layer kind has its cache backend
+(serving/backends.py): attention layers the paged (posit) KV pool,
+recurrent layers (rwkv6, rglru) a posit state pool of one slot per
+sequence slot; hybrid patterns mix both.  A pure-recurrent model takes no
+pages at all; a pattern whose attention layers are all windowed frees its
+expired pages after every step (sliding-window reclamation).  Preemption
+of a recurrent sequence is resume by re-prefill: its state slot is zeroed
+on the first chunk and rebuilt bit for bit.
 
 Each step moves the [max_seqs] sampled tokens and NaR flags to the host,
 nothing else.  Greedy decoding only: the reference samples with threefry
@@ -28,7 +35,9 @@ from repro_torch.models.transformer import (ModelConfig,
                                             assemble_paged_caches,
                                             extract_paged_pages, forward,
                                             init_paged_pages)
-from repro_torch.serving.paged_kv import GARBAGE_PAGE, PagePool, PoolExhausted
+from repro_torch.serving.backends import layout_for
+from repro_torch.serving.paged_kv import (GARBAGE_PAGE, PagePool,
+                                          PoolExhausted, reclaimable_pages)
 
 OUTCOMES = ("completed", "rejected", "failed_nar")
 
@@ -81,7 +90,8 @@ class PagedServingEngine:
     page_size:     tokens per KV page
     table_width:   max pages per sequence (caps sequence length)
     num_pages:     pool size; default fits max_seqs full-length sequences
-                   plus the garbage page
+                   plus the garbage page (2 pages for a model with no
+                   attention layer, whose pool nothing reads)
     prefill_chunk: prompt tokens per prefill step, aligned down to a
                    page_size multiple (floor one page)
     device:        "cuda" (default) or "cpu"
@@ -117,11 +127,19 @@ class PagedServingEngine:
         self.width = table_width
         self.chunk = max(page_size, (prefill_chunk // page_size) * page_size)
         self.admit_threshold = max_seqs // 2
+        self.layout = layout_for(cfg)
         if num_pages is None:
-            num_pages = max_seqs * table_width + 1
+            num_pages = (max_seqs * table_width + 1
+                         if self.layout.needs_pages else 2)
         self.num_pages = num_pages
         self.pages = init_paged_pages(cfg, num_pages, page_size,
-                                      device=self.device)
+                                      max_seqs=max_seqs, device=self.device)
+        # eager sliding-window reclamation: sound only when every attention
+        # layer is windowed (a full-attention layer still reads old pages)
+        attn = [k for k in cfg.block_pattern if k in ("attn", "attn_local")]
+        self._reclaim_window = (
+            cfg.window if attn and cfg.window
+            and all(k == "attn_local" for k in attn) else None)
         self._pool = PagePool(num_pages)
         self.table = np.zeros((max_seqs, table_width), np.int32)
         self.seq_lens = np.zeros((max_seqs,), np.int32)
@@ -152,6 +170,8 @@ class PagedServingEngine:
                     "num_pages or lower max_seqs")
 
     def _ensure_pages(self, i: int, upto: int):
+        if not self.layout.needs_pages:
+            return                     # state pools only: no KV pages
         slot = self.slots[i]
         need = -(-upto // self.page)
         if need > self.width:
@@ -165,7 +185,8 @@ class PagedServingEngine:
 
     def _free_slot(self, i: int):
         for pg in self.slots[i].pages:
-            self._pool.decref(pg)
+            if pg:                     # 0: a reclaimed window page
+                self._pool.decref(pg)
         self.table[i, :] = 0
         self.seq_lens[i] = 0
         self.slots[i] = None
@@ -213,8 +234,10 @@ class PagedServingEngine:
         bits before they return to the pool: a recycled page's stale NaN
         would poison the plain attention's masked products (0 * NaN)."""
         for pg in self.slots[i].pages:
-            if self._pool.ref_count(pg) == 1:
+            if pg and self._pool.ref_count(pg) == 1:
                 for layer in self.pages["layers"]:
+                    if "k_pages" not in layer:
+                        continue       # a state pool
                     for key in ("k_pages", "v_pages"):
                         buf = layer[key]
                         buf = getattr(buf, "bits", buf)
@@ -234,7 +257,8 @@ class PagedServingEngine:
             req = self.waiting[0]
             need = -(-(len(req.prompt) + 1) // self.page)
             free = [i for i in range(self.max_seqs) if self.slots[i] is None]
-            if not free or need > self._pool.n_free:
+            if not free or (self.layout.needs_pages
+                            and need > self._pool.n_free):
                 if self.active == 0:
                     self.waiting.popleft()
                     self._resolve(req, "rejected",
@@ -266,7 +290,10 @@ class PagedServingEngine:
         self._next_rid = max(self._next_rid, rid + 1)
         self.counters["submitted"] += 1
         req = Request(rid, prompt, max_new, submit_t=time.perf_counter())
-        if len(prompt) + max_new > self.width * self.page:
+        # the page table bounds only layouts with KV layers: a state slot
+        # is O(1) in the sequence's length
+        if (self.layout.needs_pages
+                and len(prompt) + max_new > self.width * self.page):
             self._resolve(req, "rejected",
                           detail=f"prompt+max_new = {len(prompt) + max_new} "
                                  f"exceeds per-sequence capacity "
@@ -282,7 +309,8 @@ class PagedServingEngine:
     def stats(self) -> dict:
         d = {k: 0 for k in ("admitted", "finished", "preempted",
                             "prefill_steps", "decode_steps", "submitted",
-                            "scrubbed_pages", *OUTCOMES)}
+                            "scrubbed_pages", "expired_page_frees",
+                            *OUTCOMES)}
         d.update(self.counters)
         d["free_pages"] = self._pool.n_free
         for kind, ts in self.step_times.items():
@@ -324,8 +352,31 @@ class PagedServingEngine:
             self.pages = extract_paged_pages(new_caches)
             toks, nar = toks.cpu().numpy(), nar.cpu().numpy()
         self.seq_lens += num_new
+        self._reclaim_expired()
         self.step_times[kind].append(time.perf_counter() - t0)
         return toks, nar
+
+    def _reclaim_expired(self):
+        """Free the KV pages every token of which has slid out of the
+        attention window (patterns whose attention layers are all
+        windowed).  Freed table entries point at the garbage page, which
+        the window masks of both attention kernels exclude, so a recycled
+        page may hold another sequence's KV without being read; slot.pages
+        keeps a 0 placeholder so later positions stay aligned."""
+        if self._reclaim_window is None:
+            return
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            n = reclaimable_pages(int(self.seq_lens[i]),
+                                  self._reclaim_window, self.page)
+            for j in range(min(n, len(slot.pages))):
+                pg = slot.pages[j]
+                if pg:
+                    self._pool.decref(pg)
+                    slot.pages[j] = 0
+                    self.table[i, j] = GARBAGE_PAGE
+                    self.counters["expired_page_frees"] += 1
 
     def _page_in(self, i: int) -> bool:
         """Allocate slot i's pages for its next write; a request that alone

@@ -28,6 +28,19 @@ class PoolExhausted(RuntimeError):
     """A page allocation found nothing free and nothing preemptible."""
 
 
+def reclaimable_pages(seq_len: int, window: int, page_size: int) -> int:
+    """How many leading pages of a sequence have slid entirely out of a
+    `window`-token attention window at length `seq_len` (post-append).
+
+    The newest query sits at seq_len - 1 and sees kpos in (seq_len - 1 -
+    window, seq_len); page j (tokens [j*page, (j+1)*page)) has expired when
+    (j+1)*page <= seq_len - window.  seq_len only grows, so expiry is
+    monotone and the engine frees expired pages eagerly; the attention
+    kernels' window masks hide whatever a freed page's id is recycled
+    into."""
+    return max(0, (seq_len - window) // page_size)
+
+
 class PagePool:
     """Host-side allocator of one page pool, with refcounts.
 

@@ -163,3 +163,62 @@ def test_moe_entry_points_raise_without_a_gpu():
             call()
     assert sum(ops.plain_counts().values()) == 0
     assert sum(ops.launch_counts().values()) == 0
+
+
+def test_recurrent_entry_points_raise_without_a_gpu():
+    """The recurrent serving path stands alone and asks for the card: its
+    modules import no JAX and no repro, the two configs' init raises on
+    "cuda" with no GPU, and the WKV scan (K12), the RG-LRU scan (K13) and
+    the [BH, Sq, D] attention (K14) on a non-CPU tensor take the kernel
+    path, which raises instead of running the plain versions."""
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro(\.|\s|$)"
+                     r"|from\s+repro(\.|\s))", re.M)
+    mods = ("models/rwkv6.py", "models/griffin.py",
+            "kernels/recurrent_scan.py", "serving/backends.py",
+            "configs/rwkv6_3b.py", "configs/recurrentgemma_9b.py")
+    for rel in mods:
+        src = open(os.path.join(SRC, "repro_torch", rel)).read()
+        assert not pat.search(src), rel
+    code = ("import sys\n"
+            "import repro_torch.models.rwkv6, repro_torch.models.griffin\n"
+            "import repro_torch.kernels.recurrent_scan\n"
+            "import repro_torch.serving.backends\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or "
+            "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code],
+                         env=dict(os.environ, PYTHONPATH=SRC),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.array import PositArray
+    from repro_torch.core.types import P16_2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import recurrent_scan as RS
+    from repro_torch.models.transformer import init_params
+
+    for arch in ("rwkv6-3b", "recurrentgemma-9b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_params(get_smoke(arch), device="cuda")
+    ops.reset_counters()
+    r = torch.empty(2, 3, 4, 8, device="meta")
+    u = torch.empty(3, 8, device="meta")
+    s0 = PositArray(torch.empty(2, 3, 8, 8, dtype=torch.int16,
+                                device="meta"), P16_2)
+    a = torch.empty(2, 4, 16, device="meta")
+    h0 = torch.empty(2, 16, device="meta")
+    nn = torch.ones(2, dtype=torch.int32, device="meta")
+    q = torch.empty(6, 4, 8, device="meta")
+    for call in (lambda: ops.wkv_scan(r, r, r, r, u, s0),
+                 lambda: RS.wkv_scan(r, r, r, r, u, s0.bits, nn,
+                                     cfg_state=P16_2, posit_state=True),
+                 lambda: ops.rglru_scan(a, a, h0, cfg_state=P16_2),
+                 lambda: RS.rglru_scan(a, a, h0, nn, cfg_state=None,
+                                       posit_state=False),
+                 lambda: ops.attention(q, q, q)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert sum(ops.plain_counts().values()) == 0
+    assert sum(ops.launch_counts().values()) == 0

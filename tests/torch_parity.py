@@ -26,12 +26,12 @@ def port_posit(cfg):
 
 
 def port_config(cfg):
-    """Reference ModelConfig (all-attn, swiglu, dense or MoE) -> the
-    port's."""
+    """Reference ModelConfig (dense or MoE attention stacks, rwkv6, or the
+    rglru / attn_local hybrid) -> the port's."""
     from repro_torch.models.transformer import ModelConfig, MoEConfig
     from repro_torch.quant.policy import PositPolicy
-    assert cfg.block_pattern == ("attn",)
     assert cfg.tie_embeddings and not cfg.qkv_bias
+    assert cfg.norm == "rmsnorm" and cfg.input_mode == "tokens"
     pol = PositPolicy(weights=port_posit(cfg.policy.weights),
                       kv_cache=port_posit(cfg.policy.kv_cache))
     moe = None if cfg.moe is None else MoEConfig(
@@ -42,7 +42,11 @@ def port_config(cfg):
                        d_model=cfg.d_model, n_heads=cfg.n_heads,
                        n_kv=cfg.n_kv, d_ff=cfg.d_ff, vocab=cfg.vocab,
                        head_dim=cfg.head_dim, act=cfg.act,
-                       rope_theta=cfg.rope_theta, moe=moe, policy=pol)
+                       rope_theta=cfg.rope_theta,
+                       block_pattern=tuple(cfg.block_pattern),
+                       window=cfg.window, moe=moe,
+                       embed_scale=cfg.embed_scale,
+                       rwkv_head_dim=cfg.rwkv_head_dim, policy=pol)
 
 
 def smoke_models(posit: str, ptq: bool = True, arch: str = "smollm-360m"):
