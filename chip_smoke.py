@@ -15,12 +15,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    PyTorch library call where one exists, and the card's bound;
 2d. the training kernels against their plain versions on the card: the
    contiguous flash prefill with its log-sum-exp (K7), the backward's dQ
-   (K8) and dK/dV (K9) passes at the training shape ([8,15,512,64]
-   causal) and an edge shape (128 queries over 512 keys, per-batch
-   q_offset and kv_len, window 64, softcap 30, f32 and posit16 KV), and
-   posit_gemm's transpose_a (the dW leg) at the step's five dW shapes and
-   one posit16 A, each within an f32 error bound derived in the check;
-   their timings beside the plain versions, SDPA and torch.matmul;
+   (K8, D <= 128) and dK/dV (K9) passes at four head layouts (smollm's
+   G = 3, D = 64; olmoe's G = 1, D = 128; recurrentgemma's G = 16, D =
+   256; hubert-xlarge's bidirectional D = 80), each at a training shape
+   (8 x 512 queries over 512 keys) and an edge shape (128 queries over
+   512 keys, per-batch q_offset and kv_len, window 64, softcap 30, f32
+   and posit16 KV), rows that see no key exactly 0, the forward and K9
+   repeated bit-identical; posit_gemm's transpose_a (the dW leg) at the
+   step's five dW shapes and one posit16 A, each within an f32 error
+   bound derived in the check; their timings beside the plain versions,
+   torch.matmul and SDPA (both its GQA form and K/V expanded to every
+   query head; K7 and K9 also at G = 16, D = 256);
 2c. the paper's arithmetic: the elementwise and divide kernels bit-exact
    against their plain versions (every posit8 pair at es 0..4, every
    posit8es2 fma triple, 2^26 seeded posit16 pairs and the edge patterns
@@ -71,8 +76,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and K13's outputs bit-identical, K12's y within the f32 bound; the paged
    attention (K3/K4) at head_dim 256 with 16 query heads per kv head,
    window 2,048 and the pages before it reclaimed to a garbage page of NaR
-   patterns; the [BH, Sq, D] attention (K14); their timings beside the
-   plain versions, the bound and SDPA for K14, and a counted
+   patterns; the [BH, Sq, D] attention (K14, D = 64, 256 and 80); their
+   timings beside the plain versions, the bound and SDPA for K14 (at D =
+   64 and 256), and a counted
    `ops.attention` run; (b) rwkv6-3b and recurrentgemma-9b at full width
    and depth from posit16 weights, KV and state pools, 16 requests (and
    two 2,176-token prompts past recurrentgemma's window) through
@@ -679,76 +685,115 @@ class Smoke:
                                  f"f32 bound")
         return ratio
 
-    def check_training_kernels(self):
-        """K7-K9 at the training shape ([8,15,512,64] queries over
-        [8,5,512,64] f32 KV, causal) and at an edge shape (128 queries
-        over 512 keys, per-batch q_offset and kv_len < Skv, window 64,
-        softcap 30; f32 and posit16 KV), each against its plain version
-        within the bounds of `_attn_bounds`; rows that see no key must be
-        exactly 0 on both sides.  Then posit_gemm's transpose_a (the dW
-        leg) at the five training dW shapes and one posit16 A, within the
-        f32 dot-product bound over K = 4,096."""
+    def _check_flash_case(self, name, B, H, n_kv, Sq, Skv, D, causal, qo,
+                          kl, window, softcap, cfg, repeat):
+        """One case of `check_training_kernels`; returns the worst
+        err/bound."""
         torch = self.torch
-        from repro_torch.core.types import P16_2
         from repro_torch.kernels import flash_attention as F
-        from repro_torch.kernels import posit_gemm as G
         from repro_torch.kernels import ref
-        B, H, n_kv, D = 8, 15, 5, 64
         dev = self.dev
-        worst = 0.0
-        cases = [("train", 512, None, None, None, None, None),
-                 ("edge", 128, [0, 16, 100, 384, 200, 300, 7, 50],
-                  [128, 144, 228, 512, 328, 420, 135, 100], 64, 30.0, None),
-                 ("edge", 128, [0, 16, 100, 384, 200, 300, 7, 50],
-                  [128, 144, 228, 512, 328, 420, 135, 100], 64, 30.0, P16_2)]
-        for tag, Sq, qo, kl, window, softcap, cfg in cases:
-            Skv = 512
-            q, do = self.randn(B, H, Sq, D), self.randn(B, H, Sq, D)
-            k, v = self.randn(B, n_kv, Skv, D), self.randn(B, n_kv, Skv, D)
-            if cfg is not None:
-                k, v = ref.encode_ref(k, cfg), ref.encode_ref(v, cfg)
-            qo = torch.tensor(qo or [0] * B, dtype=torch.int32, device=dev)
-            kl = torch.tensor(kl or [Skv] * B, dtype=torch.int32, device=dev)
-            kw = dict(cfg_kv=cfg, causal=True, window=window, softcap=softcap)
-            label = (f"{tag} Sq={Sq} Skv={Skv} {cfg or 'f32'} KV window="
-                     f"{window} softcap={softcap}")
-            o, lse = F.flash_prefill_contiguous(q, k, v, kl, qo,
-                                                return_lse=True, **kw)
-            po, plse = F.flash_prefill_contiguous_plain(q, k, v, kl, qo,
-                                                        return_lse=True, **kw)
+        q, do = self.randn(B, H, Sq, D), self.randn(B, H, Sq, D)
+        k, v = self.randn(B, n_kv, Skv, D), self.randn(B, n_kv, Skv, D)
+        if cfg is not None:
+            k, v = ref.encode_ref(k, cfg), ref.encode_ref(v, cfg)
+        qo = torch.tensor(qo or [0] * B, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kl or [Skv] * B, dtype=torch.int32, device=dev)
+        kw = dict(cfg_kv=cfg, causal=causal, window=window, softcap=softcap)
+        label = (f"{name} Sq={Sq} Skv={Skv} {cfg or 'f32'} KV causal="
+                 f"{causal} window={window} softcap={softcap}")
+        o, lse = F.flash_prefill_contiguous(q, k, v, kl, qo, return_lse=True,
+                                            **kw)
+        po, plse = F.flash_prefill_contiguous_plain(q, k, v, kl, qo,
+                                                    return_lse=True, **kw)
+        delta = (do * po).sum(-1)
+        bkw = dict(causal=causal, window=window, softcap=softcap)
+        if D <= 128:
             dq, dk, dv = F.flash_prefill_bwd_contiguous(q, k, v, po, plse, do,
                                                         kl, qo, **kw)
             pdq, pdk, pdv = F.flash_prefill_bwd_contiguous_plain(
                 q, k, v, po, plse, do, kl, qo, **kw)
-            tol = self._attn_bounds(q, k, v, po, plse, do, kl, qo, cfg,
-                                    True, window, softcap)
-            qpos = qo[:, None] + torch.arange(Sq, device=dev)[None, :]
-            lo = torch.clamp(qpos - (window or Skv) + 1, min=0)
-            dead = (lo >= torch.minimum(kl[:, None], qpos + 1))[:, None, :]
-            dead = dead.expand(B, H, Sq)
-            for name, pairs in (
-                    ("flash_prefill", (("out", o, po), ("lse", lse, plse))),
-                    ("flash_prefill_bwd_dq", (("dq", dq, pdq),)),
-                    ("flash_prefill_bwd_dkv", (("dk", dk, pdk),
-                                               ("dv", dv, pdv)))):
-                for what, got, want in pairs:
-                    if got is None:
-                        continue
-                    worst = max(worst, self._within(
-                        name, f"{what} {label}", got, want, tol[what]))
-            n_dead = int(dead.sum())
-            if n_dead and not all(
-                    bool((t[dead] == 0).all())
-                    for t in (o, po, lse, plse, dq, pdq)):
-                raise AssertionError(f"flash prefill {label}: rows that see "
-                                     f"no key are not 0")
-            log(f"[train-kernels] {label}: {n_dead} rows see no key, 0 on "
-                f"both sides")
             if (pdk is None) != (cfg is not None) or (dk is None) != (
                     cfg is not None):
                 raise AssertionError("dK/dV must be None exactly for posit "
                                      "KV")
-            del tol
+        else:                       # K8 takes D <= 128: dK/dV alone
+            dq = pdq = dk = dv = pdk = pdv = None
+            if cfg is None:
+                dk, dv = F.flash_prefill_bwd_dkv(q, k, v, do, plse, delta,
+                                                 kl, qo, **bkw)
+                pdk, pdv = F.flash_prefill_bwd_dkv_plain(
+                    q, k, v, do, plse, delta, kl, qo, **bkw)
+        tol = self._attn_bounds(q, k, v, po, plse, do, kl, qo, cfg, causal,
+                                window, softcap)
+        worst = 0.0
+        for kname, pairs in (
+                ("flash_prefill", (("out", o, po), ("lse", lse, plse))),
+                ("flash_prefill_bwd_dq", (("dq", dq, pdq),)),
+                ("flash_prefill_bwd_dkv", (("dk", dk, pdk), ("dv", dv, pdv)))):
+            for what, got, want in pairs:
+                if got is None:
+                    continue
+                worst = max(worst, self._within(
+                    kname, f"{what} {label}", got, want, tol[what]))
+        del tol
+        qpos = qo[:, None] + torch.arange(Sq, device=dev)[None, :]
+        lo = torch.clamp(qpos - (window or Skv) + 1, min=0)
+        hi = torch.minimum(kl[:, None], qpos + 1) if causal else kl[:, None]
+        dead = (lo >= hi)[:, None, :].expand(B, H, Sq)
+        n_dead = int(dead.sum())
+        if n_dead and not all(bool((t[dead] == 0).all())
+                              for t in (o, po, lse, plse, dq, pdq)
+                              if t is not None):
+            raise AssertionError(f"flash prefill {label}: rows that see no "
+                                 f"key are not 0")
+        log(f"[train-kernels] {label}: {n_dead} rows see no key, 0 on both "
+            f"sides")
+        if repeat:
+            o2, lse2 = F.flash_prefill_contiguous(q, k, v, kl, qo,
+                                                  return_lse=True, **kw)
+            dk1, dv1 = F.flash_prefill_bwd_dkv(q, k, v, do, plse, delta, kl,
+                                               qo, **bkw)
+            dk2, dv2 = F.flash_prefill_bwd_dkv(q, k, v, do, plse, delta, kl,
+                                               qo, **bkw)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+                    and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)):
+                raise AssertionError(f"{label}: a repeated launch of the "
+                                     f"forward or K9 is not bit-identical")
+            log(f"[train-kernels] {label}: forward and K9 repeated, "
+                f"bit-identical")
+        return worst
+
+    def check_training_kernels(self):
+        """K7-K9 at each head layout of FLASH_LAYOUTS (smollm's G = 3, D =
+        64; olmoe's G = 1, D = 128; recurrentgemma's G = 16, D = 256;
+        hubert-xlarge's G = 1, D = 80, bidirectional), each at a training
+        shape (8 x 512 queries over 512 f32 keys) and at an edge shape (128
+        queries over 512 keys, per-batch q_offset and kv_len < Skv, window
+        64, softcap 30; f32 and posit16 KV), against the plain versions
+        within the bounds of `_attn_bounds`; K8 only at D <= 128 (its
+        limit).  Rows that see no key must be exactly 0 on both sides, and
+        the forward and K9 launched twice on the training inputs must give
+        bit-identical results.  Then posit_gemm's transpose_a (the dW leg)
+        at the five training dW shapes and one posit16 A, within the f32
+        dot-product bound over K = 4,096."""
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import posit_gemm as G
+        from repro_torch.kernels import ref
+        B, Skv = 8, 512
+        worst = 0.0
+        edge = ([0, 16, 100, 384, 200, 300, 7, 50],
+                [128, 144, 228, 512, 328, 420, 135, 100], 64, 30.0)
+        for arch, H, n_kv, D, train_causal in FLASH_LAYOUTS:
+            cases = [("train", 512, train_causal, None, None, None, None,
+                      None),
+                     ("edge", 128, True, *edge, None),
+                     ("edge", 128, True, *edge, P16_2)]
+            for tag, Sq, causal, qo, kl, window, softcap, cfg in cases:
+                worst = max(worst, self._check_flash_case(
+                    f"{tag} {arch} H={H} n_kv={n_kv} D={D}", B, H, n_kv, Sq,
+                    Skv, D, causal, qo, kl, window, softcap, cfg,
+                    repeat=tag == "train"))
         K = 4096
         for M, N in DW_SHAPES:
             a, g = self.randn(K, M), self.randn(K, N)
@@ -770,87 +815,116 @@ class Smoke:
                                transpose_a=True), tol))
         self.details["training_kernels_worst_err_over_bound"] = worst
 
-    def time_training_kernels(self):
-        """K7-K9 at one layer of the training step ([8,15,512,64] causal,
-        f32 KV) and transpose_a at the step's dW shapes (K = 4,096), each
-        beside its plain version, its library call and its bound.  Causal
-        work counts the B H S (S + 1) / 2 visible pairs; per pair the
-        forward does 4 D flops (q.k and p v), dQ 6 D (q.k, dO.v, ds k) and
-        dK/dV 8 D (q.k, dO.v, p dO, ds q)."""
+    def _time_flash(self, B, H, n_kv, S, D):
+        """K7, K8 (D <= 128) and K9 at [B, H, S, D] causal over n_kv f32 kv
+        heads, each beside its plain version, its bound and two SDPA
+        yardsticks: GQA (enable_gqa=True) and K/V expanded to H heads
+        (repeat_interleave outside the timed region); the backward's
+        yardstick is SDPA's forward+backward less its forward.  Causal work
+        counts the B H S (S + 1) / 2 visible pairs; per pair the forward
+        does 4 D flops (q.k and p v), dQ 6 D (q.k, dO.v, ds k) and dK/dV
+        8 D (q.k, dO.v, p dO, ds q).  Returns {name: row}."""
         torch = self.torch
         from repro_torch.kernels import flash_attention as F
-        from repro_torch.kernels import posit_gemm as G
-        B, H, n_kv, S, D = 8, 15, 5, 512, 64
         dev = self.dev
+        G = H // n_kv
         pairs = B * H * S * (S + 1) // 2
-        q_bytes, kv_bytes, row_bytes = 4 * B * H * S * D, 4 * B * n_kv * S * D, \
-            4 * B * H * S
+        q_bytes, kv_bytes, row_bytes = (4 * B * H * S * D,
+                                        4 * B * n_kv * S * D, 4 * B * H * S)
         kl = torch.full((B,), S, dtype=torch.int32, device=dev)
         qo = torch.zeros((B,), dtype=torch.int32, device=dev)
-        nset = copies_for(2 * q_bytes + 2 * kv_bytes, 8)
         sets = []
-        for _ in range(nset):
+        for _ in range(copies_for(4 * q_bytes + 2 * kv_bytes, 8)):
             q, do = self.randn(B, H, S, D), self.randn(B, H, S, D)
             k, v = self.randn(B, n_kv, S, D), self.randn(B, n_kv, S, D)
             o, lse = F.flash_prefill_contiguous_plain(q, k, v, kl, qo,
                                                       return_lse=True)
             delta = (do * o).sum(-1)
-            sets.append((q, k, v, do, lse, delta))
+            sets.append((q, k, v, do, lse, delta, k.repeat_interleave(G, 1),
+                         v.repeat_interleave(G, 1)))
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
-        def fwd(q, k, v, *_):
-            return F.flash_prefill_contiguous(q, k, v, kl, qo,
-                                              return_lse=True)
-
-        def fwd_plain(q, k, v, *_):
-            return F.flash_prefill_contiguous_plain(q, k, v, kl, qo,
-                                                    return_lse=True)
-
-        def lib_fwd(q, k, v, *_):
+        def lib_fwd(q, k, v, do, lse, delta, ke, ve, expanded):
+            if expanded:
+                return sdpa(q, ke, ve, is_causal=True)
             return sdpa(q, k, v, is_causal=True, enable_gqa=True)
 
-        def lib_fwd_bwd(q, k, v, do, *_):
+        def lib_fwd_bwd(q, k, v, do, lse, delta, ke, ve, expanded):
+            k, v = (ke, ve) if expanded else (k, v)
             q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-            out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            out = sdpa(q, k, v, is_causal=True, enable_gqa=not expanded)
             return torch.autograd.grad(out, (q, k, v), do)
 
-        def dq(q, k, v, do, lse, delta):
-            return F.flash_prefill_bwd_dq(q, k, v, do, lse, delta, kl, qo)
-
-        def dq_plain(q, k, v, do, lse, delta):
-            return F.flash_prefill_bwd_dq_plain(q, k, v, do, lse, delta, kl,
-                                                qo)
-
-        def dkv(q, k, v, do, lse, delta):
-            return F.flash_prefill_bwd_dkv(q, k, v, do, lse, delta, kl, qo)
-
-        def dkv_plain(q, k, v, do, lse, delta):
-            return F.flash_prefill_bwd_dkv_plain(q, k, v, do, lse, delta, kl,
-                                                 qo)
-
+        kern_fns = {
+            "flash_prefill": (
+                lambda q, k, v, *_: F.flash_prefill_contiguous(
+                    q, k, v, kl, qo, return_lse=True),
+                lambda q, k, v, *_: F.flash_prefill_contiguous_plain(
+                    q, k, v, kl, qo, return_lse=True),
+                4 * D * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+            "flash_prefill_bwd_dq": (
+                lambda q, k, v, do, lse, delta, *_: F.flash_prefill_bwd_dq(
+                    q, k, v, do, lse, delta, kl, qo),
+                lambda q, k, v, do, lse, delta, *_:
+                    F.flash_prefill_bwd_dq_plain(q, k, v, do, lse, delta, kl,
+                                                 qo),
+                6 * D * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+            "flash_prefill_bwd_dkv": (
+                lambda q, k, v, do, lse, delta, *_: F.flash_prefill_bwd_dkv(
+                    q, k, v, do, lse, delta, kl, qo),
+                lambda q, k, v, do, lse, delta, *_:
+                    F.flash_prefill_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  kl, qo),
+                8 * D * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)}
+        if D > 128:
+            del kern_fns["flash_prefill_bwd_dq"]
         it = 20
-        lib_f = time_ms(torch, lib_fwd, sets, it, "sdpa forward")
-        lib_fb = time_ms(torch, lib_fwd_bwd, sets, it, "sdpa forward+backward")
-        lib_b = lib_fb - lib_f
-        shape = "one layer of the training step: [8,15,512,64] causal, f32 KV"
-        for name, fn, plain, flops, nbytes, lib in (
-                ("flash_prefill", fwd, fwd_plain, 4 * D * pairs,
-                 2 * q_bytes + 2 * kv_bytes + row_bytes, lib_f),
-                ("flash_prefill_bwd_dq", dq, dq_plain, 6 * D * pairs,
-                 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, lib_b),
-                ("flash_prefill_bwd_dkv", dkv, dkv_plain, 8 * D * pairs,
-                 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, lib_b)):
-            kern = time_ms(torch, fn, sets, it, name)
-            pl = time_ms(torch, plain, sets, 3, f"{name} plain")
+        lib = {}
+        for form in ("gqa", "expanded"):
+            exp = form == "expanded"
+            f = time_ms(torch, lambda *a: lib_fwd(*a, exp), sets, it,
+                        f"sdpa {form} forward D={D}")
+            fb = time_ms(torch, lambda *a: lib_fwd_bwd(*a, exp), sets, it,
+                         f"sdpa {form} forward+backward D={D}")
+            lib[form] = (f, fb - f)
+        rows = {}
+        for name, (fn, plain, flops, nbytes) in kern_fns.items():
+            side = 0 if name == "flash_prefill" else 1
+            kern = time_ms(torch, fn, sets, it, f"{name} D={D}")
+            pl = time_ms(torch, plain, sets, 3, f"{name} plain D={D}")
             b, by = bound(nbytes, flops)
-            self.record(name, shape=shape + (
-                "; library: SDPA's whole backward (dQ, dK, dV together)"
-                if "bwd" in name else "; library: SDPA forward"),
+            rows[name] = dict(
                 ms=kern, plain_ms=pl, bound_ms=b, bound_by=by,
-                library_ms=lib)
-            log(f"[time] {name}: {kern:.4f} ms (plain {pl:.4f}, library "
-                f"{lib:.4f}, bound {b:.4f} by {by}) per layer")
+                library_ms=min(lib["gqa"][side], lib["expanded"][side]),
+                library_gqa_ms=lib["gqa"][side],
+                library_expanded_ms=lib["expanded"][side])
+            log(f"[time] {name} [{B},{H},{S},{D}] n_kv={n_kv}: {kern:.4f} ms "
+                f"(plain {pl:.4f}, SDPA{' backward' if side else ''} gqa "
+                f"{lib['gqa'][side]:.4f} / expanded "
+                f"{lib['expanded'][side]:.4f}, bound {b:.4f} by {by}) "
+                f"({self.details['gpu']})")
         del sets
+        return rows
+
+    def time_training_kernels(self):
+        """K7-K9 at one layer of the training step ([8,15,512,64] causal,
+        f32 KV) and K7, K9 at recurrentgemma-9b's head layout over 8 x 512
+        tokens ([8,16,512,256] on one kv head), with `_time_flash`'s
+        yardsticks; transpose_a at the step's dW shapes (K = 4,096), each
+        beside its plain version, its library call and its bound."""
+        torch = self.torch
+        from repro_torch.kernels import posit_gemm as G
+        shape = "one layer of the training step: [8,15,512,64] causal, f32 KV"
+        self.details["flash_times_training"] = self._time_flash(
+            8, 15, 5, 512, 64)
+        for name, row in self.details["flash_times_training"].items():
+            self.record(name, shape=shape + (
+                "; library: the faster of SDPA's GQA and expanded-KV forms, "
+                + ("its backward (dQ, dK, dV together) = forward+backward - "
+                   "forward" if "bwd" in name else "forward")), **row)
+        self.details["flash_times_d256_g16"] = self._time_flash(
+            8, 16, 1, 512, 256)
+        torch.cuda.empty_cache()
 
         total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                  "bytes": 0.0, "flops": 0.0}
@@ -2473,14 +2547,15 @@ class Smoke:
 
     def check_flash_attention(self):
         """K14 ([BH, Sq, D] attention, queries at the last Sq positions)
-        against its plain version: BH = 120 (8 x 15 heads), D = 64, Sq =
-        Skv = 512 and Sq = 128 over Skv = 640, causal and not, posit16 and
-        f32 KV, within ATTN_TOL."""
+        against its plain version: BH = 120 (8 x 15 heads), Sq = Skv = 512
+        and Sq = 128 over Skv = 640, causal and not, posit16 and f32 KV, at
+        D = 64, 256 and 80, within ATTN_TOL."""
         from repro_torch.core.types import P16_2
         from repro_torch.kernels import flash_attention as F
         from repro_torch.kernels import ref
-        BH, D = 120, 64
-        for Sq, Skv in ((512, 512), (128, 640)):
+        BH = 120
+        for D, (Sq, Skv) in itertools.product((64, 256, 80),
+                                              ((512, 512), (128, 640))):
             q = self.randn(BH, Sq, D)
             k, v = self.randn(BH, Skv, D), self.randn(BH, Skv, D)
             for cfg in (P16_2, None):
@@ -2493,7 +2568,7 @@ class Smoke:
                                                    causal=causal)
                     live = self.torch.ones_like(got, dtype=self.torch.bool)
                     self._compare_attn(
-                        "flash_attention", f"Sq={Sq} Skv={Skv} "
+                        "flash_attention", f"D={D} Sq={Sq} Skv={Skv} "
                         f"{cfg or 'float'} causal={causal}", got, want, live,
                         dead_zero=False)
 
@@ -2524,7 +2599,8 @@ class Smoke:
         (T = 128) shapes with posit16 state, one layer each; K3/K4 at D =
         256, G = 16 (recurrentgemma's attention) at the smollm rows' lengths
         and at 8 x 2,208 tokens with the 2,048 window; K14 at [120, 512,
-        64] posit16 KV causal beside SDPA."""
+        64] and [128, 512, 256] causal, posit16 and f32 KV, beside
+        SDPA."""
         torch = self.torch
         from repro_torch.core.types import P16_2
         from repro_torch.kernels import flash_attention as F
@@ -2621,35 +2697,50 @@ class Smoke:
             rows[f"paged_flash_prefill D=256 {label}"] = dict(
                 ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
 
-        # K14 at [120, 512, 64], posit16 KV, causal
-        BH, Sq, D = 120, 512, 64
-        nbytes = 2 * BH * Sq * D * 4 + 2 * BH * Sq * D * 2
-        sets, lib_sets = [], []
-        for _ in range(copies_for(nbytes, 16)):
-            q = self.randn(BH, Sq, D)
-            k, v = self.randn(BH, Sq, D), self.randn(BH, Sq, D)
-            sets.append((q, ref.encode_ref(k, P16_2),
-                         ref.encode_ref(v, P16_2)))
-            lib_sets.append((q[None], k[None], v[None]))
-        bnd, by = bound(nbytes, 4.0 * BH * Sq * (Sq + 1) / 2 * D)
-        kern = time_ms(torch, lambda *a: F.flash_attention(
-            *a, cfg_kv=P16_2), sets, ITERS, "flash_attention")
-        plain = time_ms(torch, lambda *a: F.flash_attention_plain(
-            *a, cfg_kv=P16_2), sets, 5, "flash_attention_plain")
+        # K14 at [120, 512, 64] and [128, 512, 256], posit16 KV, causal
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = time_ms(torch, lambda q, k, v: sdpa(q, k, v, is_causal=True),
-                      lib_sets, ITERS, "sdpa")
-        self.record("flash_attention", shape="[120, 512, 64] (8 x 15 heads), "
-                    "causal, p16 KV", ms=kern, plain_ms=plain,
-                    library_ms=lib, bound_ms=bnd, bound_by=by)
+        for BH, Sq, D in ((120, 512, 64), (128, 512, 256)):
+            nbytes = 2 * BH * Sq * D * 4 + 2 * BH * Sq * D * 2
+            sets, lib_sets = [], []
+            for _ in range(copies_for(nbytes, 16)):
+                q = self.randn(BH, Sq, D)
+                k, v = self.randn(BH, Sq, D), self.randn(BH, Sq, D)
+                sets.append((q, ref.encode_ref(k, P16_2),
+                             ref.encode_ref(v, P16_2)))
+                lib_sets.append((q[None], k[None], v[None]))
+            bnd, by = bound(nbytes, 4.0 * BH * Sq * (Sq + 1) / 2 * D)
+            kern = time_ms(torch, lambda *a: F.flash_attention(
+                *a, cfg_kv=P16_2), sets, ITERS, f"flash_attention D={D}")
+            plain = time_ms(torch, lambda *a: F.flash_attention_plain(
+                *a, cfg_kv=P16_2), sets, 5, f"flash_attention_plain D={D}")
+            lib = time_ms(torch, lambda q, k, v: sdpa(q, k, v,
+                                                      is_causal=True),
+                          lib_sets, ITERS, f"sdpa D={D}")
+            rows[f"flash_attention [{BH}, {Sq}, {D}]"] = dict(
+                ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                bound_by=by)
+            # the same on f32 KV: what the posit decode costs
+            kf32 = time_ms(torch, lambda q, k, v: F.flash_attention(
+                q[0], k[0], v[0]), lib_sets, ITERS,
+                f"flash_attention f32 KV D={D}")
+            rows[f"flash_attention [{BH}, {Sq}, {D}] f32 KV"] = dict(
+                ms=kf32, plain_ms=None, library_ms=lib,
+                bound_ms=bound(4 * BH * Sq * D * 4, 4.0 * BH * Sq * (Sq + 1)
+                               / 2 * D)[0], bound_by=by)
+            if D == 64:
+                self.record("flash_attention", shape="[120, 512, 64] (8 x 15 "
+                            "heads), causal, p16 KV", ms=kern,
+                            plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                            bound_by=by)
+            del sets, lib_sets
         self.details["recurrent_kernel_times"] = rows
         card = self.details["gpu"]
         for name, rec in rows.items():
-            log(f"[time] {name}: {rec['ms']:.4f} ms (plain "
-                f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} by "
-                f"{rec['bound_by']}) ({card})")
-        log(f"[time] flash_attention: {kern:.4f} ms (plain {plain:.4f}, "
-            f"SDPA {lib:.4f}, bound {bnd:.4f} by {by}) ({card})")
+            lib, pl = rec.get("library_ms"), rec["plain_ms"]
+            log(f"[time] {name}: {rec['ms']:.4f} ms ("
+                f"{'' if pl is None else f'plain {pl:.4f}, '}"
+                f"{'' if lib is None else f'SDPA {lib:.4f}, '}bound "
+                f"{rec['bound_ms']:.4f} by {rec['bound_by']}) ({card})")
 
     def check_recurrent_logits(self, arch, n_layers):
         """Card vs CPU at full width and depth `n_layers`: the posit16 PTQ
@@ -2767,6 +2858,14 @@ MOE_TRAIN_LAYERS = 4
 MOE_SHAPES = [("up/gate", 2048, 1024), ("down", 1024, 2048)]
 # recurrentgemma-9b's drain adds requests past its 2,048-token window
 LONG_PROMPT = 2176
+# (arch, H, n_kv, head_dim, causal in the training case) of the head
+# layouts the flash kernels (K7-K9) are checked at: smollm-360m's 3 query
+# heads per kv head, olmoe-1b-7b's 1 at D = 128, recurrentgemma-9b's 16 on
+# one kv head at D = 256, hubert-xlarge's bidirectional D = 80
+FLASH_LAYOUTS = [("smollm-360m", 15, 5, 64, True),
+                 ("olmoe-1b-7b", 16, 16, 128, True),
+                 ("recurrentgemma-9b", 16, 1, 256, True),
+                 ("hubert-xlarge", 16, 16, 80, False)]
 TRAINING_KERNELS = ("flash_prefill", "flash_prefill_bwd_dq",
                     "flash_prefill_bwd_dkv", "posit_gemm_transpose_a")
 SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",

@@ -1,6 +1,7 @@
 // K7-K9: flash attention over a contiguous KV cache: the forward with the
-// row log-sum-exp (K7), and the two passes of its backward, dQ (K8) and
-// dK/dV (K9).  The training forward and backward of every attention layer.
+// row log-sum-exp (K7, also launched by K14), and the two passes of its
+// backward, dQ (K8) and dK/dV (K9).  The training forward and backward of
+// every attention layer.
 //
 // K7 replaces repro/kernels/flash_attention.py::flash_prefill_contiguous
 // (:332; pallas_call :404, body _prefill_body :153, return_lse).  K8
@@ -24,36 +25,144 @@
 //
 // Design.  The TPU grid carried the online-softmax state (or the dQ / dK dV
 // accumulators) across its sequential kv (or q) axis in VMEM.  Here each
-// block owns one output tile and loops over the other axis itself:
-//   K7, K8: one block per (32-query tile, kv head, sequence), one thread
-//     per query row of the G heads of the group (G * 32 threads); q, the
-//     accumulator (and dO for K8) live in registers; the block decodes each
-//     32-key tile of K and V into shared memory once for all G heads.  The
-//     loop visits only the key tiles some row of the block may see (causal
-//     and window cut it), and each row skips the keys its masks exclude,
-//     so masked scores are never computed.  K7 keeps the online softmax
-//     (scores of the tile in shared memory, one column per thread); K8
-//     rebuilds p = exp(s - lse) from the saved lse.
-//   K9: one block per (64-key tile, kv head, sequence), one thread per key,
-//     with dK and dV in registers and K, V stored transposed in shared
-//     memory (each thread reads its own column, conflict-free).  It sweeps
-//     the query rows of all G heads of the group in 16-row tiles staged in
-//     shared memory (each value read by the whole block: a broadcast), only
-//     the rows that can see the tile (q >= k under causal, the window).
-//     Summing over the G heads inside the thread is the GQA group-sum: no
-//     atomics, so every kernel here is deterministic run to run.
+// block owns one output tile and loops over the other axis itself.
+//
+//   K7 (and K14): one block of 256 threads per (64-row tile, kv head,
+//     sequence).  The tile's rows are the G query heads of the kv group
+//     folded together (flat row i = r * G + g), so every K/V tile feeds all
+//     of them and a G = 1 layout still gets a full tile.  The Q tile sits
+//     in shared memory for the whole sweep (read from device memory once);
+//     K and V tiles of 64 keys (32 above D = 64) are double-buffered: by
+//     cp.async for f32 KV; posit KV is loaded raw into registers and
+//     decoded once per element into shared memory behind the previous
+//     tile's arithmetic.  Threads form a 16 x 16 grid: each owns 4 rows and
+//     computes a 4 x BN/16 register tile of S = Q K^T and a 4 x D/16
+//     register tile of O += P V, every operand read from shared memory as
+//     float4 (one shared load feeds 8-16 FMAs).  The row max combines over
+//     the 16 threads of a row by warp shuffles; each thread keeps a partial
+//     row sum, combined once at the end.  P goes through shared memory
+//     between the two products, inside the warp that owns its rows.  Only
+//     key tiles some row may see are visited, and per-element masks run
+//     only on edge tiles.  One block barrier per K/V tile.
+//   K8: one block per (32-query tile, kv head, sequence), one thread per
+//     query row of the G heads of the group (G * 32 threads); q, dO and
+//     the dQ accumulator live in registers; the block decodes each 32-key
+//     tile of K and V into shared memory once for all G heads and each row
+//     walks only the keys its masks let it see.
+//   K9: one block per (32-key tile, kv head, sequence), 128 threads (256
+//     above D = 128).  K and V of the tile stay in shared memory; the block
+//     sweeps the flat rows of all G heads that can see its keys in tiles of
+//     64 (32 above D = 64), Q, dO, lse and delta double-buffered with
+//     cp.async.  Per tile: S^T = K Q^T and dP^T = V dO^T as register tiles
+//     (4 keys x BR/TX rows a thread), P^T = exp(s - lse) and dS^T = P^T
+//     (dP^T - delta) dcap into shared memory (read back by the warp that
+//     wrote them), then dV += P^T dO and dK += dS^T Q into register tiles
+//     of 4 keys x D/TX columns.  One block barrier per tile.  The sum over
+//     heads and query tiles runs in a fixed order inside the block, one
+//     output tile per block: no atomics, a repeated launch is bit-identical.
 // A row that sees no key gets out = 0 and lse = 0 (l == 0), and dQ = 0.
-// Dot products keep four partial sums (D % 4 == 0) for instruction-level
-// parallelism.
+#include <type_traits>
+
 #include "posit_codec.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;        // repro's _NEG
-constexpr int BQ = 32;                // query rows per head per block (K7, K8)
-constexpr int BK = 32;                // keys per shared tile (K7, K8)
-constexpr int BKV = 64;               // keys per block, one thread each (K9)
-constexpr int BR = 16;                // query rows per shared tile (K9)
+constexpr int BQ = 32;                // query rows per head per block (K8)
+constexpr int BK = 32;                // keys per shared tile (K8)
+constexpr int FT = 256;               // threads per block (K7): 16 x 16
+constexpr int BKV = 32;               // keys per block (K9): 4 per thread row
+constexpr int KLDP = BKV + 4;         // row stride of K9's P / dS tiles
+
+// K7 tile per head-width class: BN keys per K/V tile; two blocks a SM
+// (registers capped at 128) where shared memory allows it.  Every class
+// has RM = 4 rows a thread, BM = 64 flat query rows a block: 8-row
+// threads halved the blocks a SM and ran slower.
+template <int DMAX>
+struct FwdTile {
+  static constexpr int RM = 4;
+  static constexpr int BM = 16 * RM;
+  static constexpr int BN = DMAX <= 64 ? 64 : 32;
+  static constexpr int LDP = BM + 4;            // row stride of P^T
+  static constexpr int MIN_BLOCKS = DMAX <= 128 ? 2 : 1;
+};
+
+// K9 tile per head-width class: TY x TX threads (TY * 4 = BKV keys), BR
+// flat query rows per staged tile.
+template <int DMAX>
+struct DkvTile {
+  static constexpr int TY = 8;
+  static constexpr int TX = DMAX <= 128 ? 16 : 32;
+  static constexpr int BR = DMAX <= 64 ? 64 : 32;
+  static constexpr int NT = TY * TX;
+};
+
+// Row stride (floats) of a shared tile read by 8 lanes at 8 different rows
+// in one float4 phase: an odd number of 16-byte chunks keeps them on
+// distinct banks.
+__host__ __device__ constexpr int pad_ld(int D) {
+  return ((D / 4) & 1) ? D : D + 4;
+}
+
+// Dynamic shared bytes of each kernel (mirrored by the Python wrappers,
+// which pass them in; the entry points refuse a launch that differs).
+template <int DMAX>
+size_t fwd_shmem(int D) {
+  using F = FwdTile<DMAX>;
+  return sizeof(float) * (static_cast<size_t>(F::BM) * D +
+                          2 * F::BN * pad_ld(D) + 2 * F::BN * D +
+                          F::BN * F::LDP);
+}
+
+template <int DMAX>
+size_t dkv_shmem(int D) {
+  constexpr int BR = DkvTile<DMAX>::BR;
+  return sizeof(float) * (2 * static_cast<size_t>(BKV) * D +
+                          4 * BR * pad_ld(D) + 2 * BR * KLDP + 4 * BR);
+}
+
+// ---- cp.async (sm_80+): 16- and 4-byte copies, zero-filled when !full --
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float comp(float4 v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
 
 // dot(r, s) over d < D: r in registers, s contiguous (a broadcast read).
 template <int DMAX>
@@ -72,23 +181,6 @@ __device__ __forceinline__ float dot_rs(const float (&r)[DMAX],
   return (a0 + a1) + (a2 + a3);
 }
 
-// dot(a, b) over d < D: a contiguous, b strided by `stride`.
-template <int DMAX>
-__device__ __forceinline__ float dot_ss(const float* a, const float* b,
-                                        int stride, int D) {
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-  for (int d = 0; d < DMAX; d += 4) {
-    if (d < D) {
-      a0 = fmaf(a[d], b[d * stride], a0);
-      a1 = fmaf(a[d + 1], b[(d + 1) * stride], a1);
-      a2 = fmaf(a[d + 2], b[(d + 2) * stride], a2);
-      a3 = fmaf(a[d + 3], b[(d + 3) * stride], a3);
-    }
-  }
-  return (a0 + a1) + (a2 + a3);
-}
-
 // Keys [lo, hi) of the tile at j0 that the row at qpos sees.
 __device__ __forceinline__ void row_keys(int j0, int kl, int qpos, int causal,
                                          int window, bool live, int* lo,
@@ -100,14 +192,20 @@ __device__ __forceinline__ void row_keys(int j0, int kl, int qpos, int causal,
   *hi = live ? z : a;
 }
 
-// Key range [*lo, *hi) any row of the query tile qt may see.
-__device__ __forceinline__ void tile_keys(int qo, int qt, int Sq, int kl,
+// Key range [*lo, *hi) any row of the query positions [q_first, q_last]
+// may see.
+__device__ __forceinline__ void tile_keys(int q_first, int q_last, int kl,
                                           int causal, int window, int* lo,
                                           int* hi) {
-  const int q_first = qo + qt * BQ;
-  const int q_last = qo + min(qt * BQ + BQ, Sq) - 1;
   *hi = causal ? min(kl, q_last + 1) : kl;
   *lo = window > 0 ? max(0, q_first - window + 1) : 0;
+}
+
+// Whether the key at j is visible from the query at qpos.
+__device__ __forceinline__ bool visible(int j, int qpos, int kl, int causal,
+                                        int window) {
+  return j < kl && (!causal || j <= qpos) &&
+         (window <= 0 || qpos - j < window);
 }
 
 // Scaled, capped score; *dcap = d s_cap / d s (1 without a cap).
@@ -123,85 +221,308 @@ __device__ __forceinline__ float cap_score(float dot, float scale,
   return s;
 }
 
+// Four stored posit elements as one vector load, and their decode (f32
+// tiles go by cp.async and hold nothing in registers).
+template <typename T>
+struct Raw4 {
+  using type = unsigned;
+};
+template <>
+struct Raw4<int16_t> {
+  using type = uint2;
+};
+template <>
+struct Raw4<int8_t> {
+  using type = unsigned;
+};
+
+__device__ __forceinline__ float4 decode4(uint2 r, int n, int es) {
+  return make_float4(posit_decode(static_cast<int32_t>(r.x & 0xffffu), n, es),
+                     posit_decode(static_cast<int32_t>(r.x >> 16), n, es),
+                     posit_decode(static_cast<int32_t>(r.y & 0xffffu), n, es),
+                     posit_decode(static_cast<int32_t>(r.y >> 16), n, es));
+}
+
+__device__ __forceinline__ float4 decode4(unsigned r, int n, int es) {
+  return make_float4(posit_decode(static_cast<int32_t>(r & 0xffu), n, es),
+                     posit_decode(static_cast<int32_t>((r >> 8) & 0xffu), n,
+                                  es),
+                     posit_decode(static_cast<int32_t>((r >> 16) & 0xffu), n,
+                                  es),
+                     posit_decode(static_cast<int32_t>(r >> 24), n, es));
+}
+
+// K/V staging of K7: tile rows [j0, j0 + BN) of kv head row kvrow0, keys
+// at or past kv_hi zero.  Chunk c (4 values) is key c / D4, columns
+// 4 (c % D4).  f32 goes by cp.async; posit is loaded raw into registers
+// (fwd_load_raw) and decoded into shared memory later (fwd_store_raw).
+template <int BN>
+__device__ __forceinline__ void fwd_copy_f32(float* ks, float* vs,
+                                             const float* k, const float* v,
+                                             size_t kvrow0, int j0, int kv_hi,
+                                             int D, int ldk) {
+  const int D4 = D / 4;
+  for (int c = threadIdx.x; c < BN * D4; c += FT) {
+    const int p = c / D4, d4 = c - p * D4;
+    const bool ok = j0 + p < kv_hi;
+    const size_t src = (kvrow0 + (ok ? j0 + p : 0)) * D + 4 * d4;
+    cp_async16(ks + p * ldk + 4 * d4, k + src, ok);
+    cp_async16(vs + p * D + 4 * d4, v + src, ok);
+  }
+}
+
+template <typename T, int BN, int CH>
+__device__ __forceinline__ void fwd_load_raw(
+    typename Raw4<T>::type (&kr)[CH], typename Raw4<T>::type (&vr)[CH],
+    const T* k, const T* v, size_t kvrow0, int j0, int kv_hi, int D) {
+  using R = typename Raw4<T>::type;
+  const int D4 = D / 4;
+#pragma unroll
+  for (int cc = 0; cc < CH; ++cc) {
+    const int c = threadIdx.x + cc * FT;
+    const int p = c / D4, d4 = c - p * D4;
+    const bool ok = c < BN * D4 && j0 + p < kv_hi;
+    const size_t src = (kvrow0 + (ok ? j0 + p : 0)) * D + 4 * d4;
+    kr[cc] = ok ? *reinterpret_cast<const R*>(k + src) : R{};
+    vr[cc] = ok ? *reinterpret_cast<const R*>(v + src) : R{};
+  }
+}
+
+template <typename T, int BN, int CH>
+__device__ __forceinline__ void fwd_store_raw(
+    float* ks, float* vs, const typename Raw4<T>::type (&kr)[CH],
+    const typename Raw4<T>::type (&vr)[CH], int D, int ldk, int n, int es) {
+  const int D4 = D / 4;
+#pragma unroll
+  for (int cc = 0; cc < CH; ++cc) {
+    const int c = threadIdx.x + cc * FT;
+    if (c < BN * D4) {
+      const int p = c / D4, d4 = c - p * D4;
+      st4(ks + p * ldk + 4 * d4, decode4(kr[cc], n, es));
+      st4(vs + p * D + 4 * d4, decode4(vr[cc], n, es));
+    }
+  }
+}
+
 // ---- K7: forward, online softmax, optional lse --------------------------
-// Shared memory: k [BK*D], v [BK*D], s [BK*threads].
+// Shared memory: q [BM][D], k [2][BN][pad_ld(D)], v [2][BN][D],
+// p^T [BN][LDP].  Thread (ty, tx) owns flat rows ty*RM .. ty*RM + RM-1
+// (a warp owns 2 RM rows: P^T passes between its own lanes), keys tx +
+// 16 c of each tile and float4 columns tx + 16 nc of the output.  One
+// block barrier per K/V tile: the copy of tile t+1 starts right after it
+// and runs under tile t's arithmetic (posit tiles are loaded raw into
+// registers there and decoded into shared memory after it).
 template <typename T, int DMAX>
-__global__ void flash_fwd_kernel(
+__global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
+    flash_fwd_kernel(
     const float* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ kv_len,
     const int* __restrict__ q_offset, float* __restrict__ out,
     float* __restrict__ lse, int H, int n_kv, int Sq, int Skv, int D,
     int causal, int window, float softcap, float scale, int n, int es) {
-  extern __shared__ float smem[];
+  using F = FwdTile<DMAX>;
+  constexpr int RM = F::RM, BM = F::BM, BN = F::BN, LDP = F::LDP;
+  constexpr int RN = BN / 16;                    // keys per thread (S)
+  constexpr int NC = DMAX / 64;                  // float4 columns (O)
+  constexpr int CH = BN * DMAX / 4 / FT;         // K (V) chunks per thread
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) float smem[];
   const int G = H / n_kv;
-  const int nt = blockDim.x;                     // == G * BQ
-  const int tid = threadIdx.x;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  float* k_s = smem;
-  float* v_s = k_s + BK * D;
-  float* s_s = v_s + BK * D;                     // [BK][nt]
+  const int D4 = D / 4, ldk = pad_ld(D);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // the last row tiles see the most keys under a causal mask: run first
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nrows = G * Sq;
+  float* q_s = smem;
+  float* k_s = q_s + BM * D;
+  float* v_s = k_s + 2 * BN * ldk;
+  float* p_s = v_s + 2 * BN * D;
 
-  const int row = qt * BQ + tid % BQ;
-  const int head = h * G + tid / BQ;
-  const bool live = row < Sq;
   const int qo = q_offset[b];
-  const int qpos = qo + row;
   const int kl = min(kv_len[b], Skv);
-  const size_t ridx = (static_cast<size_t>(b) * H + head) * Sq + row;
+  const size_t qrow0 = (static_cast<size_t>(b) * H + h * G) * Sq;
+  const size_t kvrow0 = (static_cast<size_t>(b) * n_kv + h) * Skv;
 
-  float qr[DMAX], acc[DMAX];
-#pragma unroll
-  for (int d = 0; d < DMAX; ++d) {
-    qr[d] = (live && d < D) ? q[ridx * D + d] : 0.0f;
-    acc[d] = 0.0f;
+  // the Q tile: flat row i -> head h*G + i % G, query row i / G
+  for (int c = tid; c < BM * D4; c += FT) {
+    const int rr = c / D4, d4 = c - rr * D4;
+    const int i = i0 + rr;
+    const bool ok = i < nrows;
+    const size_t row = ok ? qrow0 + static_cast<size_t>(i % G) * Sq + i / G
+                          : qrow0;
+    cp_async16(q_s + rr * D + 4 * d4, q + row * D + 4 * d4, ok);
   }
-  float m = kNeg, l = 0.0f;
 
+  const int i_last = min(i0 + BM, nrows) - 1;
+  const int q_first = qo + i0 / G, q_last = qo + i_last / G;
   int kv_lo, kv_hi;
-  tile_keys(qo, qt, Sq, kl, causal, window, &kv_lo, &kv_hi);
-  const size_t kvbase = (static_cast<size_t>(b) * n_kv + h) * Skv * D;
-  for (int j0 = (kv_lo / BK) * BK; j0 < kv_hi; j0 += BK) {
-    const int nkd = min(kv_hi - j0, BK) * D;
-    for (int i = tid; i < nkd; i += nt) {
-      k_s[i] = load_value<T>(k, kvbase + static_cast<size_t>(j0) * D + i, n,
-                             es);
-      v_s[i] = load_value<T>(v, kvbase + static_cast<size_t>(j0) * D + i, n,
-                             es);
-    }
-    __syncthreads();
-    int lo, hi;
-    row_keys(j0, kl, qpos, causal, window, live, &lo, &hi);
-    const int p_lo = lo - j0, p_hi = hi - j0;
-    if (p_lo < p_hi) {
-      float mx = m;
-      for (int p = p_lo; p < p_hi; ++p) {
-        float dcap;
-        const float s = cap_score(dot_rs<DMAX>(qr, k_s + p * D, D), scale,
-                                  softcap, &dcap);
-        s_s[p * nt + tid] = s;
-        mx = fmaxf(mx, s);
-      }
-      const float alpha = expf(m - mx);
-      l *= alpha;
+  tile_keys(q_first, q_last, kl, causal, window, &kv_lo, &kv_hi);
+  const int j_start = (kv_lo / BN) * BN;
+  const int n_tiles = kv_hi > j_start ? (kv_hi - j_start + BN - 1) / BN : 0;
+
+  typename Raw4<T>::type k_raw[kF32 ? 1 : CH], v_raw[kF32 ? 1 : CH];
+  float acc[RM][NC][4];
+  float m[RM], l[RM];
 #pragma unroll
-      for (int d = 0; d < DMAX; ++d) acc[d] *= alpha;
-      for (int p = p_lo; p < p_hi; ++p) {
-        const float e = expf(s_s[p * nt + tid] - mx);
-        l += e;
+  for (int a = 0; a < RM; ++a) {
+    m[a] = kNeg;
+    l[a] = 0.0f;
 #pragma unroll
-        for (int d = 0; d < DMAX; ++d)
-          if (d < D) acc[d] = fmaf(e, v_s[p * D + d], acc[d]);
-      }
-      m = mx;
-    }
-    __syncthreads();
+    for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][nc][e] = 0.0f;
   }
-  if (live) {
-    const float inv = l > 0.0f ? 1.0f / l : 0.0f;
+
+  if (n_tiles > 0) {
+    if constexpr (kF32) {
+      fwd_copy_f32<BN>(k_s, v_s, k, v, kvrow0, j_start, kv_hi, D, ldk);
+    } else {
+      fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j_start, kv_hi, D);
+      fwd_store_raw<T, BN, CH>(k_s, v_s, k_raw, v_raw, D, ldk, n, es);
+    }
+  }
+  cp_async_commit();                             // Q (and the first tile)
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();        // tile t landed; every warp is done with t - 1
+    const int j0 = j_start + t * BN;
+    const int nb = (t + 1) & 1;
+    const bool more = t + 1 < n_tiles;
+    if (more) {
+      if constexpr (kF32)
+        fwd_copy_f32<BN>(k_s + nb * BN * ldk, v_s + nb * BN * D, k, v,
+                         kvrow0, j0 + BN, kv_hi, D, ldk);
+      else
+        fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j0 + BN, kv_hi,
+                                D);
+    }
+    cp_async_commit();
+    const float* ks = k_s + (t & 1) * BN * ldk;
+    const float* vs = v_s + (t & 1) * BN * D;
+
+    // S = Q K^T: rows ty*RM + a, keys tx + 16 c
+    float s[RM][RN];
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d)
-      if (d < D) out[ridx * D + d] = acc[d] * inv;
-    if (lse != nullptr) lse[ridx] = l > 0.0f ? m + logf(l) : 0.0f;
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int c = 0; c < RN; ++c) s[a][c] = 0.0f;
+#pragma unroll 1
+    for (int d4 = 0; d4 < D4; ++d4) {
+      float4 kb[RN];
+#pragma unroll
+      for (int c = 0; c < RN; ++c)
+        kb[c] = ld4(ks + (tx + 16 * c) * ldk + 4 * d4);
+#pragma unroll
+      for (int a = 0; a < RM; ++a) {
+        const float4 qa = ld4(q_s + (ty * RM + a) * D + 4 * d4);
+#pragma unroll
+        for (int c = 0; c < RN; ++c) s[a][c] = dot4(qa, kb[c], s[a][c]);
+      }
+    }
+
+    // masks (edge tiles only), online softmax, P^T into shared memory
+    const bool full = j0 + BN <= kl && i0 + BM <= nrows &&
+                      (!causal || j0 + BN - 1 <= q_first) &&
+                      (window <= 0 || q_last - j0 < window);
+#pragma unroll
+    for (int a = 0; a < RM; ++a) {
+      const int i = i0 + ty * RM + a;
+      const int qpos = qo + i / G;
+      bool ok[RN];
+      float mx = m[a];
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        float dcap;
+        s[a][c] = cap_score(s[a][c], scale, softcap, &dcap);
+        ok[c] = full || (i < nrows && visible(j0 + tx + 16 * c, qpos, kl,
+                                              causal, window));
+        if (ok[c]) mx = fmaxf(mx, s[a][c]);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float alpha = expf(m[a] - mx);
+      m[a] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        const float e = ok[c] ? expf(s[a][c] - mx) : 0.0f;
+        s[a][c] = e;
+        sum += e;
+      }
+      l[a] = fmaf(l[a], alpha, sum);
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][nc][e] *= alpha;
+    }
+#pragma unroll
+    for (int c = 0; c < RN; ++c)
+#pragma unroll
+      for (int a = 0; a < RM; a += 4)
+        st4(p_s + (tx + 16 * c) * LDP + ty * RM + a,
+            make_float4(s[a][c], s[a + 1][c], s[a + 2][c], s[a + 3][c]));
+    __syncwarp();
+
+    // O += P V: rows ty*RM + a, float4 columns tx + 16 nc
+    const int nk = min(BN, kv_hi - j0);
+#pragma unroll 2
+    for (int p = 0; p < nk; ++p) {
+      float pr[RM];
+#pragma unroll
+      for (int a = 0; a < RM; a += 4) {
+        const float4 pa = ld4(p_s + p * LDP + ty * RM + a);
+        pr[a] = pa.x;
+        pr[a + 1] = pa.y;
+        pr[a + 2] = pa.z;
+        pr[a + 3] = pa.w;
+      }
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc) {
+        const int c = tx + 16 * nc;
+        if (c < D4) {
+          const float4 vv = ld4(vs + p * D + 4 * c);
+#pragma unroll
+          for (int a = 0; a < RM; ++a) {
+            acc[a][nc][0] = fmaf(pr[a], vv.x, acc[a][nc][0]);
+            acc[a][nc][1] = fmaf(pr[a], vv.y, acc[a][nc][1]);
+            acc[a][nc][2] = fmaf(pr[a], vv.z, acc[a][nc][2]);
+            acc[a][nc][3] = fmaf(pr[a], vv.w, acc[a][nc][3]);
+          }
+        }
+      }
+    }
+    if constexpr (!kF32) {
+      if (more)
+        fwd_store_raw<T, BN, CH>(k_s + nb * BN * ldk, v_s + nb * BN * D,
+                                 k_raw, v_raw, D, ldk, n, es);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    float lt = l[a];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    const int i = i0 + ty * RM + a;
+    if (i >= nrows) continue;
+    const size_t row = qrow0 + static_cast<size_t>(i % G) * Sq + i / G;
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc) {
+      const int c = tx + 16 * nc;
+      if (c < D4) {
+        float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (lt > 0.0f)
+          o = make_float4(acc[a][nc][0] / lt, acc[a][nc][1] / lt,
+                          acc[a][nc][2] / lt, acc[a][nc][3] / lt);
+        st4(out + row * D + 4 * c, o);
+      }
+    }
+    if (lse != nullptr && tx == 0)
+      lse[row] = lt > 0.0f ? m[a] + logf(lt) : 0.0f;
   }
 }
 
@@ -215,7 +536,7 @@ __global__ void flash_bwd_dq_kernel(
     const int* __restrict__ kv_len, const int* __restrict__ q_offset,
     float* __restrict__ dq, int H, int n_kv, int Sq, int Skv, int D,
     int causal, int window, float softcap, float scale, int n, int es) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int G = H / n_kv;
   const int nt = blockDim.x;
   const int tid = threadIdx.x;
@@ -242,7 +563,8 @@ __global__ void flash_bwd_dq_kernel(
   const float dl = live ? delta[ridx] : 0.0f;
 
   int kv_lo, kv_hi;
-  tile_keys(qo, qt, Sq, kl, causal, window, &kv_lo, &kv_hi);
+  tile_keys(qo + qt * BQ, qo + min(qt * BQ + BQ, Sq) - 1, kl, causal, window,
+            &kv_lo, &kv_hi);
   const size_t kvbase = (static_cast<size_t>(b) * n_kv + h) * Skv * D;
   for (int j0 = (kv_lo / BK) * BK; j0 < kv_hi; j0 += BK) {
     const int nkd = min(kv_hi - j0, BK) * D;
@@ -275,99 +597,225 @@ __global__ void flash_bwd_dq_kernel(
   }
 }
 
+// Staging of K9: flat rows [i0, i0 + BR) of Q, dO (row stride ldq), lse
+// and delta, rows at or past i_hi zero.
+template <int BR, int NT>
+__device__ __forceinline__ void dkv_stage(
+    float* qs, float* os, float* ls, float* ds, const float* q,
+    const float* dout, const float* lse, const float* delta, size_t qrow0,
+    int G, int Sq, int i0, int i_hi, int D, int ldq) {
+  const int D4 = D / 4;
+  for (int c = threadIdx.x; c < BR * D4; c += NT) {
+    const int rr = c / D4, d4 = c - rr * D4;
+    const int i = i0 + rr;
+    const bool ok = i < i_hi;
+    const size_t row = ok ? qrow0 + static_cast<size_t>(i % G) * Sq + i / G
+                          : qrow0;
+    cp_async16(qs + rr * ldq + 4 * d4, q + row * D + 4 * d4, ok);
+    cp_async16(os + rr * ldq + 4 * d4, dout + row * D + 4 * d4, ok);
+  }
+  for (int rr = threadIdx.x; rr < BR; rr += NT) {
+    const int i = i0 + rr;
+    const bool ok = i < i_hi;
+    const size_t row = ok ? qrow0 + static_cast<size_t>(i % G) * Sq + i / G
+                          : qrow0;
+    cp_async4(ls + rr, lse + row, ok);
+    cp_async4(ds + rr, delta + row, ok);
+  }
+}
+
 // ---- K9: dK and dV (float KV) -------------------------------------------
-// Shared memory: kT [D*BKV], vT [D*BKV] (transposed: column = key),
-// q [BR*D], dO [BR*D], lse [BR], delta [BR].
+// Shared memory: k [BKV][D], v [BKV][D], q and dO [2][BR][pad_ld(D)] each,
+// p and ds [BR][KLDP] each, lse and delta [2][BR] each.
 template <int DMAX>
-__global__ void __launch_bounds__(BKV) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__(DkvTile<DMAX>::NT, 1) flash_bwd_dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ kv_len, const int* __restrict__ q_offset,
     float* __restrict__ dk, float* __restrict__ dv, int H, int n_kv, int Sq,
     int Skv, int D, int causal, int window, float softcap, float scale) {
-  extern __shared__ float smem[];
+  constexpr int TX = DkvTile<DMAX>::TX, BR = DkvTile<DMAX>::BR;
+  constexpr int NT = DkvTile<DMAX>::NT;
+  constexpr int RR = BR / TX;                    // rows per thread (S^T)
+  constexpr int NC = DMAX / (4 * TX);            // float4 columns (dK, dV)
+  extern __shared__ __align__(16) float smem[];
   const int G = H / n_kv;
-  const int tid = threadIdx.x;
+  const int D4 = D / 4, ldq = pad_ld(D);
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  float* kT = smem;
-  float* vT = kT + D * BKV;
-  float* q_s = vT + D * BKV;
-  float* do_s = q_s + BR * D;
-  float* lse_s = do_s + BR * D;
-  float* dl_s = lse_s + BR;
+  float* k_s = smem;
+  float* v_s = k_s + BKV * D;
+  float* q_s = v_s + BKV * D;
+  float* o_s = q_s + 2 * BR * ldq;
+  float* p_s = o_s + 2 * BR * ldq;
+  float* ds_s = p_s + BR * KLDP;
+  float* lse_s = ds_s + BR * KLDP;
+  float* dl_s = lse_s + 2 * BR;
 
   const int j0 = kt * BKV;
-  const int j = j0 + tid;
   const int kl = min(kv_len[b], Skv);
   const int qo = q_offset[b];
-  const size_t kvbase = (static_cast<size_t>(b) * n_kv + h) * Skv * D;
-  const int nkd = min(BKV, Skv - j0) * D;
-  for (int i = tid; i < nkd; i += BKV) {
-    const int p = i / D, d = i - p * D;
-    kT[d * BKV + p] = k[kvbase + static_cast<size_t>(j0) * D + i];
-    vT[d * BKV + p] = v[kvbase + static_cast<size_t>(j0) * D + i];
-  }
-  float dk_r[DMAX], dv_r[DMAX];
-#pragma unroll
-  for (int d = 0; d < DMAX; ++d) {
-    dk_r[d] = 0.0f;
-    dv_r[d] = 0.0f;
-  }
-  __syncthreads();
+  const size_t kvrow0 = (static_cast<size_t>(b) * n_kv + h) * Skv;
+  const size_t qrow0 = (static_cast<size_t>(b) * H + h * G) * Sq;
 
+  for (int c = tid; c < BKV * D4; c += NT) {
+    const int p = c / D4, d4 = c - p * D4;
+    const int j = j0 + p;
+    const bool ok = j < Skv;
+    const size_t src = (kvrow0 + (ok ? j : 0)) * D + 4 * d4;
+    cp_async16(k_s + p * D + 4 * d4, k + src, ok);
+    cp_async16(v_s + p * D + 4 * d4, v + src, ok);
+  }
+
+  // flat rows i = r * G + g of the query rows that see some key of the tile
+  int i_lo = 0, i_hi = 0;
   if (j0 < kl) {                                 // block-uniform
     const int j_hi = min(j0 + BKV, kl);
-    // query rows that see some key of [j0, j_hi)
     const int r_lo = causal ? max(0, j0 - qo) : 0;
     const int r_hi = window > 0 ? min(Sq, j_hi - 1 + window - qo) : Sq;
-    const bool kvalid = j < kl;
-    for (int g = 0; g < G; ++g) {
-      const size_t rbase = (static_cast<size_t>(b) * H + h * G + g) * Sq;
-      for (int r0 = r_lo; r0 < r_hi; r0 += BR) {
-        const int nr = min(BR, r_hi - r0);
-        for (int i = tid; i < nr * D; i += BKV) {
-          q_s[i] = q[(rbase + r0) * D + i];
-          do_s[i] = dout[(rbase + r0) * D + i];
-        }
-        if (tid < nr) {
-          lse_s[tid] = lse[rbase + r0 + tid];
-          dl_s[tid] = delta[rbase + r0 + tid];
-        }
-        __syncthreads();
-        if (kvalid) {
-          for (int ii = 0; ii < nr; ++ii) {
-            const int qpos = qo + r0 + ii;
-            if (causal && qpos < j) continue;
-            if (window > 0 && qpos - j >= window) continue;
-            const float* qi = q_s + ii * D;
-            const float* di = do_s + ii * D;
-            float dcap;
-            const float s = cap_score(dot_ss<DMAX>(qi, kT + tid, BKV, D),
-                                      scale, softcap, &dcap);
-            const float pr = expf(s - lse_s[ii]);
-            const float dp = dot_ss<DMAX>(di, vT + tid, BKV, D);
-            const float ds = pr * (dp - dl_s[ii]) * dcap;
+    if (r_hi > r_lo) {
+      i_lo = r_lo * G;
+      i_hi = r_hi * G;
+    }
+  }
+  const int n_tiles = (i_hi - i_lo + BR - 1) / BR;
+
+  float dK[4][NC][4], dV[4][NC][4];
 #pragma unroll
-            for (int d = 0; d < DMAX; ++d) {
-              if (d < D) {
-                dv_r[d] = fmaf(pr, di[d], dv_r[d]);
-                dk_r[d] = fmaf(ds, qi[d], dk_r[d]);
-              }
-            }
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dK[a][nc][e] = 0.0f;
+        dV[a][nc][e] = 0.0f;
+      }
+
+  if (n_tiles > 0)
+    dkv_stage<BR, NT>(q_s, o_s, lse_s, dl_s, q, dout, lse, delta, qrow0, G,
+                      Sq, i_lo, i_hi, D, ldq);
+  cp_async_commit();                             // K, V and the first tile
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();        // tile t landed; every warp is done with t - 1
+    if (t + 1 < n_tiles) {
+      const int nb = (t + 1) & 1;
+      dkv_stage<BR, NT>(q_s + nb * BR * ldq, o_s + nb * BR * ldq,
+                        lse_s + nb * BR, dl_s + nb * BR, q, dout, lse, delta,
+                        qrow0, G, Sq, i_lo + (t + 1) * BR, i_hi, D, ldq);
+    }
+    cp_async_commit();
+    const int i0 = i_lo + t * BR;
+    const float* qs = q_s + (t & 1) * BR * ldq;
+    const float* os = o_s + (t & 1) * BR * ldq;
+    const float* ls = lse_s + (t & 1) * BR;
+    const float* dls = dl_s + (t & 1) * BR;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys ty*4 + a, rows tx + TX c
+    float s[4][RR], dp[4][RR];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < RR; ++c) {
+        s[a][c] = 0.0f;
+        dp[a][c] = 0.0f;
+      }
+#pragma unroll 2
+    for (int d4 = 0; d4 < D4; ++d4) {
+      float4 ka[4], va[4], qb[RR], ob[RR];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        ka[a] = ld4(k_s + (ty * 4 + a) * D + 4 * d4);
+        va[a] = ld4(v_s + (ty * 4 + a) * D + 4 * d4);
+      }
+#pragma unroll
+      for (int c = 0; c < RR; ++c) {
+        qb[c] = ld4(qs + (tx + TX * c) * ldq + 4 * d4);
+        ob[c] = ld4(os + (tx + TX * c) * ldq + 4 * d4);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < RR; ++c) {
+          s[a][c] = dot4(ka[a], qb[c], s[a][c]);
+          dp[a][c] = dot4(va[a], ob[c], dp[a][c]);
+        }
+    }
+
+    // P^T = exp(s - lse), dS^T = P^T (dP^T - delta) dcap, masked
+    const int i_end = min(i0 + BR, i_hi);
+    const int q_first = qo + i0 / G, q_last = qo + (i_end - 1) / G;
+    const bool full = j0 + BKV <= kl && i0 + BR <= i_hi &&
+                      (!causal || j0 + BKV - 1 <= q_first) &&
+                      (window <= 0 || q_last - j0 < window);
+#pragma unroll
+    for (int c = 0; c < RR; ++c) {
+      const int rr = tx + TX * c;
+      const int i = i0 + rr;
+      const int qp = qo + i / G;
+      const float L = ls[rr], dl = dls[rr];
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const bool ok = full || (i < i_hi && visible(j0 + ty * 4 + a, qp, kl,
+                                                     causal, window));
+        float dcap;
+        const float sv = cap_score(s[a][c], scale, softcap, &dcap);
+        const float pr = ok ? expf(sv - L) : 0.0f;
+        pv[a] = pr;
+        dsv[a] = ok ? pr * (dp[a][c] - dl) * dcap : 0.0f;
+      }
+      st4(p_s + rr * KLDP + ty * 4, make_float4(pv[0], pv[1], pv[2], pv[3]));
+      st4(ds_s + rr * KLDP + ty * 4,
+          make_float4(dsv[0], dsv[1], dsv[2], dsv[3]));
+    }
+    __syncwarp();           // the rows of keys ty*4.. come from this warp
+
+    // dV += P^T dO, dK += dS^T Q: keys ty*4 + a, float4 columns tx + TX nc
+    const int nr = i_end - i0;
+#pragma unroll 2
+    for (int r = 0; r < nr; ++r) {
+      const float4 pa = ld4(p_s + r * KLDP + ty * 4);
+      const float4 da = ld4(ds_s + r * KLDP + ty * 4);
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc) {
+        const int c = tx + TX * nc;
+        if (c < D4) {
+          const float4 ov = ld4(os + r * ldq + 4 * c);
+          const float4 qv = ld4(qs + r * ldq + 4 * c);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float pr = comp(pa, a), dsr = comp(da, a);
+            dV[a][nc][0] = fmaf(pr, ov.x, dV[a][nc][0]);
+            dV[a][nc][1] = fmaf(pr, ov.y, dV[a][nc][1]);
+            dV[a][nc][2] = fmaf(pr, ov.z, dV[a][nc][2]);
+            dV[a][nc][3] = fmaf(pr, ov.w, dV[a][nc][3]);
+            dK[a][nc][0] = fmaf(dsr, qv.x, dK[a][nc][0]);
+            dK[a][nc][1] = fmaf(dsr, qv.y, dK[a][nc][1]);
+            dK[a][nc][2] = fmaf(dsr, qv.z, dK[a][nc][2]);
+            dK[a][nc][3] = fmaf(dsr, qv.w, dK[a][nc][3]);
           }
         }
-        __syncthreads();
       }
     }
   }
-  if (j < Skv) {
-    const size_t o = kvbase + static_cast<size_t>(j) * D;
+  cp_async_wait<0>();
+
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d) {
-      if (d < D) {
-        dk[o + d] = dk_r[d] * scale;
-        dv[o + d] = dv_r[d];
+  for (int a = 0; a < 4; ++a) {
+    const int j = j0 + ty * 4 + a;
+    if (j >= Skv) continue;
+    const size_t o = (kvrow0 + j) * D;
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc) {
+      const int c = tx + TX * nc;
+      if (c < D4) {
+        st4(dk + o + 4 * c,
+            make_float4(dK[a][nc][0] * scale, dK[a][nc][1] * scale,
+                        dK[a][nc][2] * scale, dK[a][nc][3] * scale));
+        st4(dv + o + 4 * c, make_float4(dV[a][nc][0], dV[a][nc][1],
+                                        dV[a][nc][2], dV[a][nc][3]));
       }
     }
   }
@@ -399,57 +847,66 @@ struct Args {
 };
 
 template <typename T, int DMAX>
-int launch_qtile(const Args& a, bool backward, cudaStream_t st) {
+int launch_fwd(const Args& a, int threads, size_t shmem, cudaStream_t st) {
+  if (threads != FT || shmem != fwd_shmem<DMAX>(a.D))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const int G = a.H / a.n_kv;
-  const int nt = G * BQ;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.n_kv, a.B);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  if (!backward) {
-    const size_t shmem = sizeof(float) * (2 * BK * a.D + BK * nt);
-    cudaError_t e = allow_shmem(flash_fwd_kernel<T, DMAX>, shmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    flash_fwd_kernel<T, DMAX><<<grid, nt, shmem, st>>>(
-        a.q, k, v, a.kv_len, a.q_offset, a.out, a.lse_out, a.H, a.n_kv, a.Sq,
-        a.Skv, a.D, a.causal, a.window, a.softcap, a.scale, a.n, a.es);
-  } else {
-    const size_t shmem = sizeof(float) * 2 * BK * a.D;
-    cudaError_t e = allow_shmem(flash_bwd_dq_kernel<T, DMAX>, shmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_dq_kernel<T, DMAX><<<grid, nt, shmem, st>>>(
-        a.q, k, v, a.dout, a.lse_in, a.delta, a.kv_len, a.q_offset, a.out,
-        a.H, a.n_kv, a.Sq, a.Skv, a.D, a.causal, a.window, a.softcap,
-        a.scale, a.n, a.es);
-  }
+  constexpr int BM = FwdTile<DMAX>::BM;
+  dim3 grid((G * a.Sq + BM - 1) / BM, a.n_kv, a.B);
+  cudaError_t e = allow_shmem(flash_fwd_kernel<T, DMAX>, shmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_fwd_kernel<T, DMAX><<<grid, FT, shmem, st>>>(
+      a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.kv_len,
+      a.q_offset, a.out, a.lse_out, a.H, a.n_kv, a.Sq, a.Skv, a.D, a.causal,
+      a.window, a.softcap, a.scale, a.n, a.es);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_d(const Args& a, bool backward, cudaStream_t st) {
-  if (a.D <= 64) return launch_qtile<T, 64>(a, backward, st);
-  if (a.D <= 128) return launch_qtile<T, 128>(a, backward, st);
+int dispatch_fwd(const Args& a, int threads, size_t shmem, cudaStream_t st) {
+  if (a.D <= 64) return launch_fwd<T, 64>(a, threads, shmem, st);
+  if (a.D <= 128) return launch_fwd<T, 128>(a, threads, shmem, st);
+  if (a.D <= 256) return launch_fwd<T, 256>(a, threads, shmem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int dispatch_qtile(const Args& a, int dtype, bool backward,
-                   cudaStream_t st) {
-  if (a.B <= 0 || a.Sq <= 0) return 0;
-  if (a.D % 4 != 0 || a.H % a.n_kv != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == DT_F32) return dispatch_d<float>(a, backward, st);
-  if (dtype == DT_I8) return dispatch_d<int8_t>(a, backward, st);
-  if (dtype == DT_I16) return dispatch_d<int16_t>(a, backward, st);
+template <typename T, int DMAX>
+int launch_dq(const Args& a, cudaStream_t st) {
+  const int G = a.H / a.n_kv;
+  const int nt = G * BQ;
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.n_kv, a.B);
+  const size_t shmem = sizeof(float) * 2 * BK * a.D;
+  cudaError_t e = allow_shmem(flash_bwd_dq_kernel<T, DMAX>, shmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_kernel<T, DMAX><<<grid, nt, shmem, st>>>(
+      a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.dout,
+      a.lse_in, a.delta, a.kv_len, a.q_offset, a.out, a.H, a.n_kv, a.Sq,
+      a.Skv, a.D, a.causal, a.window, a.softcap, a.scale, a.n, a.es);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_dq(const Args& a, cudaStream_t st) {
+  if (a.D <= 64) return launch_dq<T, 64>(a, st);
+  if (a.D <= 128) return launch_dq<T, 128>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int check_args(const Args& a) {
+  if (a.D % 4 != 0 || a.D <= 0 || a.n_kv <= 0 || a.H % a.n_kv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 template <int DMAX>
-int launch_dkv(const Args& a, float* dk, float* dv, cudaStream_t st) {
-  const size_t shmem =
-      sizeof(float) * (2 * a.D * BKV + 2 * BR * a.D + 2 * BR);
+int launch_dkv(const Args& a, float* dk, float* dv, int threads,
+               size_t shmem, cudaStream_t st) {
+  if (threads != DkvTile<DMAX>::NT || shmem != dkv_shmem<DMAX>(a.D))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t e = allow_shmem(flash_bwd_dkv_kernel<DMAX>, shmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.Skv + BKV - 1) / BKV, a.n_kv, a.B);
-  flash_bwd_dkv_kernel<DMAX><<<grid, BKV, shmem, st>>>(
+  flash_bwd_dkv_kernel<DMAX><<<grid, threads, shmem, st>>>(
       a.q, static_cast<const float*>(a.k), static_cast<const float*>(a.v),
       a.dout, a.lse_in, a.delta, a.kv_len, a.q_offset, dk, dv, a.H, a.n_kv,
       a.Sq, a.Skv, a.D, a.causal, a.window, a.softcap, a.scale);
@@ -458,20 +915,29 @@ int launch_dkv(const Args& a, float* dk, float* dv, cudaStream_t st) {
 
 }  // namespace
 
-// K7.  out [B,H,Sq,D]; lse [B,H,Sq] or null.  window <= 0: none;
+// K7 (and K14).  out [B,H,Sq,D]; lse [B,H,Sq] or null.  window <= 0: none;
 // softcap <= 0: none.  dtype: the storage of k and v (0 f32, 1 int8,
-// 2 int16 posit of format (n, es)).
+// 2 int16 posit of format (n, es)).  threads and shmem: the launch
+// geometry the caller computed for D (refused unless it is this file's).
 extern "C" int flash_prefill_fwd(const void* q, const void* k, const void* v,
                                  const void* kv_len, const void* q_offset,
                                  void* out, void* lse, int B, int H, int n_kv,
                                  int Sq, int Skv, int D, int causal,
                                  int window, float softcap, float scale,
-                                 int dtype, int n, int es, void* stream) {
+                                 int dtype, int n, int es, int threads,
+                                 int shmem, void* stream) {
   Args a{static_cast<const float*>(q), k, v, nullptr, nullptr, nullptr,
          static_cast<const int*>(kv_len), static_cast<const int*>(q_offset),
          static_cast<float*>(out), static_cast<float*>(lse), B, H, n_kv, Sq,
          Skv, D, causal, window, softcap, scale, n, es};
-  return dispatch_qtile(a, dtype, false, static_cast<cudaStream_t>(stream));
+  if (B <= 0 || Sq <= 0) return 0;
+  if (int e = check_args(a)) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t sh = static_cast<size_t>(shmem);
+  if (dtype == DT_F32) return dispatch_fwd<float>(a, threads, sh, st);
+  if (dtype == DT_I8) return dispatch_fwd<int8_t>(a, threads, sh, st);
+  if (dtype == DT_I16) return dispatch_fwd<int16_t>(a, threads, sh, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K8.  dq [B,H,Sq,D] from q, k, v, dO, lse, delta = rowsum(dO * o).
@@ -488,10 +954,17 @@ extern "C" int flash_prefill_bwd_dq(const void* q, const void* k,
          static_cast<const int*>(kv_len), static_cast<const int*>(q_offset),
          static_cast<float*>(dq), nullptr, B, H, n_kv, Sq, Skv, D, causal,
          window, softcap, scale, n, es};
-  return dispatch_qtile(a, dtype, true, static_cast<cudaStream_t>(stream));
+  if (B <= 0 || Sq <= 0) return 0;
+  if (int e = check_args(a)) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32) return dispatch_dq<float>(a, st);
+  if (dtype == DT_I8) return dispatch_dq<int8_t>(a, st);
+  if (dtype == DT_I16) return dispatch_dq<int16_t>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K9.  dk, dv [B,n_kv,Skv,D] (group-summed) for f32 k and v.
+// K9.  dk, dv [B,n_kv,Skv,D] (group-summed) for f32 k and v; threads and
+// shmem as for K7.
 extern "C" int flash_prefill_bwd_dkv(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
@@ -499,19 +972,21 @@ extern "C" int flash_prefill_bwd_dkv(const void* q, const void* k,
                                      void* dk, void* dv, int B, int H,
                                      int n_kv, int Sq, int Skv, int D,
                                      int causal, int window, float softcap,
-                                     float scale, void* stream) {
-  if (B <= 0 || Skv <= 0) return 0;
-  if (D % 4 != 0 || H % n_kv != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                     float scale, int threads, int shmem,
+                                     void* stream) {
   Args a{static_cast<const float*>(q), k, v, static_cast<const float*>(dout),
          static_cast<const float*>(lse), static_cast<const float*>(delta),
          static_cast<const int*>(kv_len), static_cast<const int*>(q_offset),
          nullptr, nullptr, B, H, n_kv, Sq, Skv, D, causal, window, softcap,
          scale, 0, 0};
+  if (B <= 0 || Skv <= 0) return 0;
+  if (int e = check_args(a)) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dkp = static_cast<float*>(dk);
   float* dvp = static_cast<float*>(dv);
-  if (D <= 64) return launch_dkv<64>(a, dkp, dvp, st);
-  if (D <= 128) return launch_dkv<128>(a, dkp, dvp, st);
+  const size_t sh = static_cast<size_t>(shmem);
+  if (D <= 64) return launch_dkv<64>(a, dkp, dvp, threads, sh, st);
+  if (D <= 128) return launch_dkv<128>(a, dkp, dvp, threads, sh, st);
+  if (D <= 256) return launch_dkv<256>(a, dkp, dvp, threads, sh, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -55,11 +55,12 @@ SIGNATURES = {
                                 _P),
     },
     "flash_prefill": {
-        "flash_prefill_fwd": (_P,) * 7 + (_I,) * 8 + (_F, _F, _I, _I, _I,
-                                                      _P),
+        "flash_prefill_fwd": (_P,) * 7 + (_I,) * 8 + (_F, _F) + (_I,) * 5
+        + (_P,),
         "flash_prefill_bwd_dq": (_P,) * 9 + (_I,) * 8 + (_F, _F, _I, _I, _I,
                                                          _P),
-        "flash_prefill_bwd_dkv": (_P,) * 10 + (_I,) * 8 + (_F, _F, _P),
+        "flash_prefill_bwd_dkv": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _I,
+                                                          _P),
     },
     "grouped_gemm": {
         "posit_grouped_gemm": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),

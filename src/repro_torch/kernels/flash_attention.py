@@ -18,6 +18,8 @@ reference's -1e30 masking there, the contiguous ones give 0 as well.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.types import PositConfig
@@ -153,7 +155,44 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, seq_lens, q_offset,
 
 
 # ---- K7-K9: the contiguous prefill and its backward ---------------------
-_BQ = 32                      # query rows per head per block (K7, K8)
+_BQ = 32                      # query rows per head per block (K8)
+_DQ_MAX_D = 128               # K8 keeps its one-thread-per-row design
+_MAX_D = 256                  # the forward (K7, K14) and K9
+
+
+class Geometry(NamedTuple):
+    threads: int
+    shmem: int                # dynamic shared bytes
+
+
+def _pad_ld(D):
+    # an odd number of 16-byte chunks per row: 8 lanes reading 8 rows in
+    # one float4 phase hit 8 different banks
+    return D if (D // 4) % 2 else D + 4
+
+
+def flash_geometry(kernel: str, D: int) -> Geometry:
+    """Launch geometry of the register-tiled forward (`kernel="fwd"`, K7
+    and K14: 64 flat query rows a block, K/V tiles of 64 keys, 32 above
+    D = 64) or dK/dV (`"dkv"`, K9: 32 keys a block, Q/dO tiles of 64
+    rows, 32 above D = 64) at head_dim D, mirroring
+    ``csrc/flash_prefill.cu`` (whose entry points refuse any other).  The
+    forward folds the G query heads of a kv group into its row tiles and
+    K9 sweeps them inside the block, so G does not change it."""
+    if D <= 0 or D % 4 or D > _MAX_D:
+        raise ValueError(f"head_dim {D}: the flash kernels take D % 4 == 0 "
+                         f"and D <= {_MAX_D}")
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+    if kernel == "fwd":
+        bn = 64 if dmax == 64 else 32
+        return Geometry(256, 4 * (64 * D + 2 * bn * _pad_ld(D)
+                                  + 2 * bn * D + bn * 68))
+    if kernel == "dkv":
+        br = 64 if dmax == 64 else 32
+        tx = 16 if dmax <= 128 else 32
+        return Geometry(8 * tx, 4 * (2 * 32 * D + 4 * br * _pad_ld(D)
+                                     + 2 * br * 36 + 4 * br))
+    raise ValueError(f"unknown flash kernel {kernel!r}")
 
 
 def _kv_dtype(k, v, cfg_kv):
@@ -165,8 +204,10 @@ def _kv_dtype(k, v, cfg_kv):
     return dt
 
 
-def _check_prefill(fn, q, k, v, kv_len, q_offset):
-    """Shapes the K7-K9 kernels take -> (B, H, n_kv, Sq, Skv, D)."""
+def _check_prefill(fn, q, k, v, kv_len, q_offset, dq=False):
+    """Shapes the K7-K9 kernels take -> (B, H, n_kv, Sq, Skv, D).  The
+    forward and K9 take D <= 256; K8 (dq) D <= 128 and at most 32 query
+    heads per kv head (one thread per row of each head)."""
     if q.dtype != torch.float32:
         raise TypeError(f"{fn}: q must be float32, got {q.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
@@ -175,14 +216,23 @@ def _check_prefill(fn, q, k, v, kv_len, q_offset):
                          f"{tuple(v.shape)}")
     B, H, Sq, D = q.shape
     _, n_kv, Skv, _ = k.shape
-    if (k.shape[0] != B or k.shape[3] != D or H % n_kv or D % 4 or D > 128
-            or (H // n_kv) * _BQ > 1024):
-        raise ValueError(f"{fn}: needs matching B and D, H % n_kv == 0, "
-                         f"D % 4 == 0, D <= 128 and at most 32 query heads "
-                         f"per kv head")
+    if k.shape[0] != B or k.shape[3] != D or n_kv == 0 or H % n_kv:
+        raise ValueError(f"{fn}: needs matching B and D and H % n_kv == 0")
+    if D % 4 or D > (_DQ_MAX_D if dq else _MAX_D):
+        limit = (f"K8, the dQ pass, takes D <= {_DQ_MAX_D}" if dq
+                 else f"the kernel takes D <= {_MAX_D}")
+        raise ValueError(f"{fn}: head_dim {D}: needs D % 4 == 0; {limit}")
+    if dq and (H // n_kv) * _BQ > 1024:
+        raise ValueError(f"{fn}: K8 takes at most 32 query heads per kv "
+                         f"head")
     if kv_len.shape != (B,) or q_offset.shape != (B,):
         raise ValueError(f"{fn}: kv_len and q_offset must be [B] = [{B}]")
     return B, H, n_kv, Sq, Skv, D
+
+
+def _aligned(t):
+    # the kernels copy rows with 16-byte cp.async
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _window(window):
@@ -224,6 +274,8 @@ def flash_prefill_contiguous(q, k, v, kv_len, q_offset, *,
                              q_offset)
     B, H, n_kv, Sq, Skv, D = _check_prefill("flash_prefill_contiguous", q, k,
                                             v, kv_len, q_offset)
+    geo = flash_geometry("fwd", D)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -233,7 +285,7 @@ def flash_prefill_contiguous(q, k, v, kv_len, q_offset, *,
         q_offset.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, H, n_kv, Sq, Skv, D,
         int(causal), _window(window), _softcap(softcap), float(D ** -0.5),
-        build.DTYPE_CODE[dt], n, es, build.stream(q))
+        build.DTYPE_CODE[dt], n, es, geo.threads, geo.shmem, build.stream(q))
     flash_prefill_contiguous.launches += 1
     build.check_launch(rc, "flash_prefill_fwd")
     return (out, lse) if return_lse else out
@@ -267,7 +319,7 @@ def flash_prefill_bwd_dq(q, k, v, do, lse, delta, kv_len, q_offset, *,
     build.check_cuda_tensors("flash_prefill_bwd_dq", q, k, v, do, lse, delta,
                              kv_len, q_offset)
     B, H, n_kv, Sq, Skv, D = _check_prefill("flash_prefill_bwd_dq", q, k, v,
-                                            kv_len, q_offset)
+                                            kv_len, q_offset, dq=True)
     if do.shape != q.shape or lse.shape != (B, H, Sq) or \
             delta.shape != (B, H, Sq):
         raise ValueError("flash_prefill_bwd_dq: do must match q, lse and "
@@ -317,13 +369,15 @@ def flash_prefill_bwd_dkv(q, k, v, do, lse, delta, kv_len, q_offset, *,
             delta.shape != (B, H, Sq):
         raise ValueError("flash_prefill_bwd_dkv: do must match q, lse and "
                          "delta [B, H, Sq]")
+    geo = flash_geometry("dkv", D)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = lib.flash_prefill_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), kv_len.data_ptr(),
         q_offset.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, n_kv, Sq,
         Skv, D, int(causal), _window(window), _softcap(softcap),
-        float(D ** -0.5), build.stream(q))
+        float(D ** -0.5), geo.threads, geo.shmem, build.stream(q))
     flash_prefill_bwd_dkv.launches += 1
     build.check_launch(rc, "flash_prefill_bwd_dkv")
     return dk, dv
@@ -373,7 +427,7 @@ def flash_attention(q, k, v, *, cfg_kv: PositConfig | None = None,
     """K14: q [BH, Sq, D] f32 over k/v [BH, Skv, D] (f32, or posit ints of
     cfg_kv decoded in the kernel) -> [BH, Sq, D] f32; causal puts the
     queries at the last Sq positions.  K7's forward with H = n_kv = 1 per
-    batch row, kv_len = Skv and q_offset = Skv - Sq; D <= 128."""
+    batch row, kv_len = Skv and q_offset = Skv - Sq; D <= 256."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, cfg_kv=cfg_kv, causal=causal)
     lib = build.library("flash_prefill")
@@ -387,10 +441,8 @@ def flash_attention(q, k, v, *, cfg_kv: PositConfig | None = None,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     BH, Sq, D = q.shape
     Skv = k.shape[1]
-    if D > 128 or D % 4:
-        raise ValueError(f"flash_attention: head_dim {D}: the kernel takes "
-                         f"D <= 128 with D % 4 == 0")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    geo = flash_geometry("fwd", D)
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     kv_len = torch.full((BH,), Skv, dtype=torch.int32, device=q.device)
     q_off = torch.full((BH,), Skv - Sq, dtype=torch.int32, device=q.device)
     build.check_cuda_tensors("flash_attention", q, k, v, kv_len, q_off)
@@ -402,7 +454,7 @@ def flash_attention(q, k, v, *, cfg_kv: PositConfig | None = None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         q_off.data_ptr(), out.data_ptr(), None, BH, 1, 1, Sq, Skv, D,
         int(causal), 0, 0.0, float(D ** -0.5), build.DTYPE_CODE[dt], n, es,
-        build.stream(q))
+        geo.threads, geo.shmem, build.stream(q))
     flash_attention.launches += 1
     build.check_launch(rc, "flash_prefill_fwd")
     return out

@@ -528,12 +528,14 @@ def test_pure_recurrent_ignores_page_capacity(monkeypatch):
     np.testing.assert_array_equal(out[0], ref_out[0])
 
 
+@pytest.mark.parametrize("D", [16, 80, 256])
 @pytest.mark.parametrize("kv", ["f32", "p16", "p8"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_attention_matches_reference(kv, causal):
+def test_attention_matches_reference(kv, causal, D):
     """ops.attention (CPU: the plain K14) against repro's ops.attention
     (`flash_attention_ref`) over [BH, Sq, D], queries at the last Sq of
-    Skv positions, posit or f32 KV."""
+    Skv positions, posit or f32 KV; D = 80 and 256 are head widths the
+    kernel takes beyond D = 128."""
     import jax.numpy as jnp
     from repro.core.array import PositArray as RPA
     from repro.core.convert import f32_to_posit
@@ -541,7 +543,7 @@ def test_attention_matches_reference(kv, causal):
     from repro_torch.core.array import PositArray as TPA
     from repro_torch.kernels import ops
     rng = np.random.default_rng(5)
-    BH, Sq, Skv, D = 6, 5, 19, 16
+    BH, Sq, Skv = 6, 5, 19
     q = rng.standard_normal((BH, Sq, D)).astype(np.float32)
     k = rng.standard_normal((BH, Skv, D)).astype(np.float32)
     v = rng.standard_normal((BH, Skv, D)).astype(np.float32)

@@ -28,6 +28,13 @@ FWD_TOL = 1e-5
 BWD_TOL = 3e-5
 
 B, H, N_KV, D = 2, 6, 2, 16             # G = 3 query heads per kv head
+LAYOUT = (H, N_KV, D)
+# wider head layouts (H, n_kv, head_dim): recurrentgemma's 16 query heads
+# on one kv head at D = 256, hubert-xlarge's D = 80 (not a power of two)
+# and phi-3-vision's D = 96 with G = 8
+WIDE_LAYOUTS = [(16, 1, 256), (4, 4, 80), (8, 1, 96)]
+# every row sees a key: offsets, kv_len < Skv, a window and a softcap
+WIDE_CASE = ("wide", 12, 30, (18, 5), (30, 17), True, 9, 4.0)
 
 # (id, Sq, Skv, q_offset [B], kv_len [B], causal, window, softcap)
 CASES = [
@@ -51,13 +58,14 @@ def _jnp_reference_few_threads(monkeypatch):
     torch.set_num_threads(n)
 
 
-def _inputs(case, kv):
+def _inputs(case, kv, layout=LAYOUT):
     _, Sq, Skv, qo, kl, *_ = case
+    h, n_kv, d = layout
     rng = np.random.default_rng(Sq * 100 + Skv)
-    q = rng.standard_normal((B, H, Sq, D)).astype(np.float32)
-    k = rng.standard_normal((B, N_KV, Skv, D)).astype(np.float32)
-    v = rng.standard_normal((B, N_KV, Skv, D)).astype(np.float32)
-    do = rng.standard_normal((B, H, Sq, D)).astype(np.float32)
+    q = rng.standard_normal((B, h, Sq, d)).astype(np.float32)
+    k = rng.standard_normal((B, n_kv, Skv, d)).astype(np.float32)
+    v = rng.standard_normal((B, n_kv, Skv, d)).astype(np.float32)
+    do = rng.standard_normal((B, h, Sq, d)).astype(np.float32)
     ref_cfg = _ref_cfg(kv)
     if ref_cfg is not None:
         import jax.numpy as jnp
@@ -85,13 +93,13 @@ def _valid(case):
     return valid
 
 
-def _reference(case, q, k, v, kv):
+def _reference(case, q, k, v, kv, n_kv=N_KV):
     import jax.numpy as jnp
     from repro.models.blocks import _blockwise_jnp
     _, Sq, Skv, qo, kl, causal, window, softcap = case
 
     def f(qq, kk, vv):
-        return _blockwise_jnp(qq, kk, vv, n_kv=N_KV, causal=causal,
+        return _blockwise_jnp(qq, kk, vv, n_kv=n_kv, causal=causal,
                               q_off=jnp.asarray(qo, jnp.int32),
                               window=window, q_chunk=512, kv_chunk=512,
                               softcap=softcap,
@@ -113,17 +121,13 @@ def _port(case, q, k, v, kv):
     return kt, vt, torch.tensor(kl), torch.tensor(qo), kw
 
 
-@pytest.mark.parametrize("kv", ["f32", "p16", "p8"])
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_flash_prefill_plain_matches_reference(case, kv):
-    """Forward out against _blockwise_jnp, lse against a float64 numpy
-    logsumexp of the masked scores, on every row that sees a key; the
-    counted plain version ran, no kernel."""
+def _check_forward(case, kv, layout=LAYOUT):
     import jax.numpy as jnp
     from repro.core.decode import decode_to_f32
     from repro_torch.kernels import ops
-    q, k, v, _, qo, kl = _inputs(case, kv)
-    want = np.asarray(_reference(case, q, k, v, kv)(
+    h, n_kv, d = layout
+    q, k, v, _, qo, kl = _inputs(case, kv, layout)
+    want = np.asarray(_reference(case, q, k, v, kv, n_kv)(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     kt, vt, klt, qot, kw = _port(case, q, k, v, kv)
     ops.reset_counters()
@@ -135,15 +139,15 @@ def test_flash_prefill_plain_matches_reference(case, kv):
     valid = _valid(case)
     live = valid.any(-1)                                   # [B, Sq]
     assert live.mean() > 0.8
-    rows = np.broadcast_to(live[:, None, :], (B, H, case[1]))
+    rows = np.broadcast_to(live[:, None, :], (B, h, case[1]))
     np.testing.assert_allclose(out.numpy()[rows], want[rows], rtol=FWD_TOL,
                                atol=FWD_TOL)
     assert (out.numpy()[~rows] == 0).all() and (lse.numpy()[~rows] == 0).all()
 
     kf = (np.asarray(decode_to_f32(jnp.asarray(k), _ref_cfg(kv)))
           if kv != "f32" else k).astype(np.float64)
-    kg = np.repeat(kf, H // N_KV, axis=1)
-    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kg) * D ** -0.5
+    kg = np.repeat(kf, h // n_kv, axis=1)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kg) * d ** -0.5
     if case[7] is not None:
         s = np.tanh(s / case[7]) * case[7]
     s = np.where(valid[:, None], s, -np.inf)
@@ -154,27 +158,21 @@ def test_flash_prefill_plain_matches_reference(case, kv):
                                rtol=FWD_TOL, atol=FWD_TOL)
 
 
-@pytest.mark.parametrize("kv", ["f32", "p16", "p8"])
-@pytest.mark.parametrize("case", [c for c in CASES if c[0] != "all"],
-                         ids=[c[0] for c in CASES if c[0] != "all"])
-def test_flash_prefill_bwd_plain_matches_reference(case, kv):
-    """(dQ, dK, dV) from the saved lse against jax.vjp of _blockwise_jnp;
-    posit KV gives dQ only (dK = dV = None).  Every row of these cases
-    sees a key (the reference averages masked values on a row that sees
-    none, so its gradient there is not the kernel's)."""
+def _check_backward(case, kv, layout=LAYOUT):
     import jax
     import jax.numpy as jnp
     from repro_torch.kernels import ops
-    q, k, v, do, qo, kl = _inputs(case, kv)
+    n_kv = layout[1]
+    q, k, v, do, qo, kl = _inputs(case, kv, layout)
     assert _valid(case).any(-1).all()
-    f = _reference(case, q, k, v, kv)
+    f = _reference(case, q, k, v, kv, n_kv)
     kt, vt, klt, qot, kw = _port(case, q, k, v, kv)
     qt = torch.from_numpy(q)
     o, lse = ops.flash_prefill(qt, kt, vt, klt, qot, return_lse=True, **kw)
     ops.reset_counters()
     dq, dk, dv = ops.flash_prefill_bwd(qt, kt, vt, o, lse,
                                        torch.from_numpy(do), klt, qot,
-                                       n_kv=N_KV, **kw)
+                                       n_kv=n_kv, **kw)
     plain = ops.plain_counts()
     if kv == "f32":
         _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -194,6 +192,40 @@ def test_flash_prefill_bwd_plain_matches_reference(case, kv):
         np.testing.assert_allclose(g.numpy(), w, rtol=BWD_TOL,
                                    atol=BWD_TOL * np.abs(w).max(),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("kv", ["f32", "p16", "p8"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_prefill_plain_matches_reference(case, kv):
+    """Forward out against _blockwise_jnp, lse against a float64 numpy
+    logsumexp of the masked scores, on every row that sees a key; the
+    counted plain version ran, no kernel."""
+    _check_forward(case, kv)
+
+
+@pytest.mark.parametrize("kv", ["f32", "p16", "p8"])
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] != "all"],
+                         ids=[c[0] for c in CASES if c[0] != "all"])
+def test_flash_prefill_bwd_plain_matches_reference(case, kv):
+    """(dQ, dK, dV) from the saved lse against jax.vjp of _blockwise_jnp;
+    posit KV gives dQ only (dK = dV = None).  Every row of these cases
+    sees a key (the reference averages masked values on a row that sees
+    none, so its gradient there is not the kernel's)."""
+    _check_backward(case, kv)
+
+
+@pytest.mark.parametrize("kv", ["f32", "p16"])
+@pytest.mark.parametrize("layout", WIDE_LAYOUTS,
+                         ids=[f"H{h}-nkv{n}-D{d}" for h, n, d in WIDE_LAYOUTS])
+def test_flash_prefill_plain_wide_heads_match_reference(layout, kv):
+    """The head layouts the register-tiled forward and dK/dV take beyond
+    the file's G = 3, D = 16 (up to 16 query heads per kv head, head_dim
+    up to 256, head_dims that are not powers of two): the forward with lse
+    and the backward, each against the reference as above, with the same
+    tolerances, at one case with offsets, kv_len < Skv, a window and a
+    softcap."""
+    _check_forward(WIDE_CASE, kv, layout)
+    _check_backward(WIDE_CASE, kv, layout)
 
 
 def test_fused_prefill_autograd_runs_the_backward_kernels():
@@ -296,3 +328,46 @@ def test_posit_gemm_transpose_a_plain_against_numpy(a_kind):
     assert out.shape == (M, N)
     np.testing.assert_allclose(out.numpy(), want, rtol=GEMM_TOL,
                                atol=GEMM_TOL)
+
+
+def test_flash_geometry_fits_every_config_head_layout():
+    """The launch geometry of the register-tiled forward (K7, K14) and of
+    dK/dV (K9) stays within an H100 block's 1,024 threads and 232,448
+    bytes of shared memory at the (G, head_dim) of every reference config;
+    the wrappers' shape check takes D <= 256 for both, and K8 (dQ) keeps
+    its D <= 128 limit with a message that names it."""
+    from repro.configs import ARCHS, get_config
+    from repro_torch.kernels import flash_attention as F
+    seen = set()
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        G, d = cfg.n_heads // cfg.n_kv, cfg.hd
+        seen.add((G, d))
+        for kernel in ("fwd", "dkv"):
+            geo = F.flash_geometry(kernel, d)
+            assert geo.threads % 32 == 0 and geo.threads <= 1024, (arch, geo)
+            assert 0 < geo.shmem <= 232448, (arch, kernel, geo)
+        q = torch.zeros(1, cfg.n_heads, 4, d)
+        k = torch.zeros(1, cfg.n_kv, 8, d)
+        kl = torch.full((1,), 8, dtype=torch.int32)
+        qo = torch.zeros(1, dtype=torch.int32)
+        want = (1, cfg.n_heads, cfg.n_kv, 4, 8, d)
+        for fn in ("flash_prefill_contiguous", "flash_prefill_bwd_dkv"):
+            assert F._check_prefill(fn, q, k, k, kl, qo) == want
+        if d > 128:
+            with pytest.raises(ValueError, match="K8"):
+                F._check_prefill("flash_prefill_bwd_dq", q, k, k, kl, qo,
+                                 dq=True)
+        else:
+            assert F._check_prefill("flash_prefill_bwd_dq", q, k, k, kl, qo,
+                                    dq=True) == want
+    assert {(3, 64), (1, 128), (16, 256), (8, 256), (6, 128), (8, 128),
+            (16, 128), (1, 80), (1, 96)} <= seen
+    for d in (0, 6, 260):
+        with pytest.raises(ValueError, match="head_dim"):
+            F.flash_geometry("fwd", d)
+    q, k = torch.zeros(1, 2, 4, 260), torch.zeros(1, 1, 8, 260)
+    with pytest.raises(ValueError, match="D <= 256"):
+        F._check_prefill("flash_prefill_contiguous", q, k, k,
+                         torch.full((1,), 8, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32))
