@@ -2,16 +2,23 @@
 """Bring-up check of the PyTorch port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py --rwkv-layers [--src DIR]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit, then the build of every CUDA kernel
-   from ``src/repro_torch/csrc`` (one nvcc per source, all in parallel);
+   from ``src/repro_torch/csrc`` (one nvcc per source, all in parallel),
+   and ptxas's registers of every instance of the tiled posit GEMM and its
+   split-K reduce, none of which may spill;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes of full-width smollm-360m, for posit16, posit8 and float pages:
    the codec bit-exact (exhaustive decode, encode over an f32 sweep), the
-   posit GEMM within the f32 dot-product error bound, the paged attention
-   within 1e-4; each kernel also timed beside its plain version, one
+   posit GEMM within the f32 dot-product error bound (plus, for f32 x f32,
+   the 2^-22 (|a| @ |b|) its tensor-core route declares), also at edge
+   shapes (M 9/24/129, N 100, K 1/7/33, and two split-K shapes) with f32,
+   posit8 and posit16 operands in every transpose_a/transpose_b
+   combination, posit out the one rounding of its own f32 result, every
+   tiled launch repeated bit-identical; the paged attention within 1e-4; each kernel also timed beside its plain version, one
    PyTorch library call where one exists, and the card's bound;
 2d. the training kernels against their plain versions on the card: the
    contiguous flash prefill with its log-sum-exp (K7), the backward's dQ
@@ -22,8 +29,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    512 keys, per-batch q_offset and kv_len, window 64, softcap 30, f32
    and posit16 KV), rows that see no key exactly 0, the forward and K9
    repeated bit-identical; posit_gemm's transpose_a (the dW leg) at the
-   step's five dW shapes and one posit16 A, each within an f32 error
-   bound derived in the check; their timings beside the plain versions,
+   step's five dW shapes (split-K at four) and one posit16 A, each within
+   the bound of phase 2 and repeated bit-identical; their timings beside the plain versions,
    torch.matmul and SDPA (both its GQA form and K/V expanded to every
    query head; K7 and K9 also at G = 16, D = 256);
 2c. the paper's arithmetic: the elementwise and divide kernels bit-exact
@@ -31,7 +38,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    posit8es2 fma triple, 2^26 seeded posit16 pairs and the edge patterns
    against all 65,536), Table II's wrong-% on the card, the quire GEMM
    (posit16 in and out, M = 1024 at smollm-360m's shapes) against its
-   plain version, their timings, and the arithmetic main path: `pnp` arrays
+   plain version and repeated bit-identical, their timings, and the arithmetic main path: `pnp` arrays
    of 2^26 posit16 lanes through every operator and the GEMM, counters
    zeroed just before and read just after;
 3. the serving main path: full-width smollm-360m from the port's seeded init,
@@ -84,9 +91,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    two 2,176-token prompts past recurrentgemma's window) through
    PagedServingEngine, counted as in phase 3, each with a profiled decode
    window; (c) logits at full width (rwkv6 depth 2, recurrentgemma depth
-   3) on the card against the CPU, with the state patterns that differ;
+   3) on the card against the CPU, with the state patterns that differ
+   (rwkv6's whole-model number reported only), and rwkv6 layer by layer:
+   the CPU runs each layer from the card's own inputs and state patterns,
+   each output and the head's logits within LOGITS_TOL;
    (d) smoke drains of both, card against CPU, token for token;
-4. ``kernels: {...}`` with each kernel's launches on its main path, the
+4. ``kernels: {...}`` with each kernel's launches on its main path (and
+   the split-K reduces of the tiled GEMM, `pw_gemm_reduce` on the serving
+   path and `posit_gemm_reduce` on the arithmetic path), the
    card's name and power limit, one JSON line of per-kernel numbers, and
    last the contract line ``{"ok": true, "device": {...}}``.
 
@@ -106,10 +118,15 @@ import subprocess
 import sys
 import time
 
-# H100 SXM, published (dense): HBM3 bandwidth and the f32 rate outside the
-# tensor cores.  The kernels use FFMA only, so f32 is their operation type.
+# H100 SXM, published (dense): HBM3 bandwidth, the f32 rate outside the
+# tensor cores and the bf16 tensor-core rate.  Every kernel but the tiled
+# posit GEMM (K2 at M > 8, and every general-form call) uses FFMA, so f32
+# is their operation type; the tiled GEMM runs bf16 mma.sync on exact bf16
+# pieces of its operands (csrc/posit_gemm.cu), so its operations are the
+# bf16 products: 4 per f32 product for posit x posit, 6 otherwise.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 ATTN_TOL = 1e-4          # kernel vs plain attention, abs and rel
 ARITH_LANES = 1 << 26    # elementwise/divide lanes: 128 MB per p16 operand
@@ -181,10 +198,59 @@ def sass_per_lane(lib_path: str, kernel: str, lanes: int):
     raise RuntimeError(f"{kernel} not in the SASS of {lib_path}")
 
 
+def ptxas_report(build, lib: str, kernels: tuple[str, ...]) -> list[dict]:
+    """Registers and spill bytes of every instance of `kernels` in `lib`,
+    from the `-Xptxas -v` log its build left; raises if one spills."""
+    import re
+    text = (build.BUILD_DIR / f"{lib}.log").read_text()
+    rows = []
+    for m in re.finditer(r"Compiling entry function '(\w+)'(.*?)Used (\d+) "
+                         r"registers", text, re.S):
+        name = next((k for k in kernels if k in m.group(1)), None)
+        if name is None:
+            continue
+        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                               m.group(2)))
+        rows.append({"kernel": name, "symbol": m.group(1),
+                     "registers": int(m.group(3)), "spill_bytes": spill})
+    if not rows:
+        raise RuntimeError(f"no {kernels} in {lib}'s ptxas log")
+    bad = [r["symbol"] for r in rows if r["spill_bytes"]]
+    if bad:
+        raise AssertionError(f"ptxas spills in {bad}")
+    return rows
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time in ms for the work, and which resource sets it."""
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def gemm_products(cfg_a, cfg_b) -> int:
+    """bf16 products per f32 product in the tiled K2: two pieces per posit
+    operand, three per f32 one, f32 x f32 keeping 6 of 9."""
+    return 4 if cfg_a is not None and cfg_b is not None else 6
+
+
+def tc_bound(nbytes: float, flops: float,
+             products: int) -> tuple[float, str, float]:
+    """The tiled K2's bound: the larger of bytes over HBM and its bf16
+    products (`products` per f32 product of `flops`) over the tensor-core
+    rate; and, beside it, the FFMA bound of the same f32 work."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, products * flops / BF16_FLOP_PER_S
+    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations",
+            bound(nbytes, flops)[0])
+
+
+def gemm_tol(torch, af, bf, K: int, f32xf32: bool):
+    """The tiled K2's error bound against the plain version: the f32
+    dot-product bound 2 K 2^-24 (|a| @ |b|) of two summation orders, plus
+    for f32 x f32 the declared 2^-22 (|a| @ |b|) of the three piece
+    products it drops (csrc/posit_gemm.cu).  af, bf: [M, K], [K, N]
+    values."""
+    s = af.abs().double() @ bf.abs().double()
+    return (2 * K * 2.0 ** -24 + (2.0 ** -22 if f32xf32 else 0.0)) * s
 
 
 def time_ms(torch, fn, arg_sets, iters: int, label: str = "") -> float:
@@ -352,6 +418,10 @@ class Smoke:
                 for M in (1, 8, 24, 512, 1024):
                     x = self.randn(M, K)
                     got = G.pw_gemm(x, w, cfg, transpose_b=tb)
+                    if M > G.SKINNY_M:
+                        self._repeat_same(f"pw_gemm {cfg} {name} M={M}", got,
+                                          G.pw_gemm(x, w, cfg,
+                                                    transpose_b=tb))
                     want = G.pw_gemm_plain(x, w, cfg, tb)
                     # f32 dot products of length K differ by at most
                     # 2*K*2^-24 * (|x| @ |w|) between any two orders
@@ -367,6 +437,98 @@ class Smoke:
                         raise AssertionError(f"pw_gemm {cfg} {name} M={M}: "
                                              f"error above the f32 bound")
         self.details["gemm_worst_err_over_bound"] = worst
+
+    def _repeat_same(self, label, got, again):
+        """A tiled K2 launch repeated on the same inputs: bit-identical
+        (fixed summation order, split-K reduced in slice order)."""
+        torch = self.torch
+        if got.dtype == torch.float32:
+            got, again = got.view(torch.int32), again.view(torch.int32)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: a repeated launch differs")
+
+    def check_gemm_edges(self):
+        """The tiled K2 at edge shapes: M in {9, 24, 129}, N = 100, K in
+        {1, 7, 33}, and two split-K shapes (200 x 300 and 960 x 320 over K =
+        4,096), with f32, posit8 and posit16 A and B in every combination
+        and every transpose_a / transpose_b, f32 out and posit16 out; the
+        pw form at the same edge shapes with posit8 and posit16 weights.
+        Each within `gemm_tol` of the plain version, posit out equal to
+        the one rounding of the kernel's own f32 result, and every form
+        launched twice bit-identical."""
+        torch = self.torch
+        from repro_torch.core.types import P8_2, P16_2
+        from repro_torch.kernels import posit_gemm as G
+        from repro_torch.kernels import ref
+
+        def operand(cfg, shape, scale=1.0):
+            x = self.randn(*shape, scale=scale)
+            if cfg is None:
+                return x, x
+            bits = ref.encode_ref(x, cfg)
+            return bits, ref.decode_ref(bits, cfg)
+
+        worst, cases, split = 0.0, 0, 0
+        shapes = [(M, 100, K) for M in (9, 24, 129) for K in (1, 7, 33)]
+        shapes += [(200, 300, 4096), (960, 320, 4096)]
+        for M, N, K in shapes:
+            for ca, cb in itertools.product((None, P8_2, P16_2), repeat=2):
+                for ta, tb in itertools.product((False, True), repeat=2):
+                    a, af = operand(ca, (K, M) if ta else (M, K))
+                    b, bf = operand(cb, (N, K) if tb else (K, N), K ** -0.5)
+                    kw = dict(cfg_a=ca, cfg_b=cb, transpose_a=ta,
+                              transpose_b=tb)
+                    label = (f"posit_gemm {ca or 'f32'} x {cb or 'f32'} M={M} "
+                             f"N={N} K={K} ta={ta} tb={tb}")
+                    got = G.posit_gemm(a, b, **kw)
+                    self._repeat_same(label, got, G.posit_gemm(a, b, **kw))
+                    want = G.posit_gemm_plain(a, b, **kw)
+                    tol = gemm_tol(torch, af.T if ta else af,
+                                   bf.T if tb else bf, K,
+                                   ca is None and cb is None)
+                    diff = (got.double() - want.double()).abs()
+                    ratio = float((diff / (tol + 1e-300)).max())
+                    self.err("posit_gemm", diff.max())
+                    pos = G.posit_gemm(a, b, cfg_out=P16_2, out_posit=True,
+                                       **kw)
+                    self._repeat_same(label + " posit out", pos, G.posit_gemm(
+                        a, b, cfg_out=P16_2, out_posit=True, **kw))
+                    self._same(label + " posit out", pos,
+                               ref.encode_ref(got, P16_2))
+                    worst = max(worst, ratio)
+                    cases += 1
+                    plan = G.gemm_plan(M, N, K, tuple(
+                        "f32" if c is None else "posit" for c in (ca, cb)),
+                        ta, tb)
+                    split += plan.splits > 1
+                    if ratio > 1.0:
+                        raise AssertionError(f"{label}: error {ratio:.3e} of "
+                                             f"the bound")
+            log(f"[gemm edge] M={M} N={N} K={K}: 9 operand kinds x 4 "
+                f"transposes within bound, posit out one rounding, repeats "
+                f"bit-identical (worst err/bound so far {worst:.3e})")
+        for M, K in itertools.product((9, 24, 129), (1, 7, 33)):
+            for cfg, tb in itertools.product((P8_2, P16_2), (False, True)):
+                x = self.randn(M, K)
+                w, wf = operand(cfg, (100, K) if tb else (K, 100), K ** -0.5)
+                label = f"pw_gemm {cfg} M={M} N=100 K={K} tb={tb}"
+                got = G.pw_gemm(x, w, cfg, transpose_b=tb)
+                self._repeat_same(label, got, G.pw_gemm(x, w, cfg,
+                                                        transpose_b=tb))
+                want = G.pw_gemm_plain(x, w, cfg, tb)
+                tol = gemm_tol(torch, x, wf.T if tb else wf, K, False)
+                diff = (got.double() - want.double()).abs()
+                ratio = float((diff / (tol + 1e-300)).max())
+                self.err("pw_gemm", diff.max())
+                worst = max(worst, ratio)
+                cases += 1
+                if ratio > 1.0:
+                    raise AssertionError(f"{label}: error {ratio:.3e} of the "
+                                         f"bound")
+        self.details["gemm_edges"] = {"cases": cases, "split_k_cases": split,
+                                      "worst_err_over_bound": worst}
+        log(f"[gemm edge] {cases} cases ({split} split-K), worst err/bound "
+            f"{worst:.3e}")
 
     def _pool(self, cfg, P, n_kv, page, D):
         from repro_torch.kernels import ref
@@ -517,14 +679,20 @@ class Smoke:
                     x, wf.T if tb else wf), [(w,) for w in wfs], it,
                     f"torch.matmul {at}")
                 nbytes = 4 * M * K + 2 * K * N + 4 * M * N
+                # M <= 8: the skinny FFMA kernels; above, the tensor cores
                 b, by = bound(nbytes, 2.0 * M * K * N)
+                ffma = b
+                if M > G.SKINNY_M:
+                    b, by, ffma = tc_bound(nbytes, 2.0 * M * K * N,
+                                           gemm_products(None, cfg))
                 rows.append({"shape": name, "M": M, "K": K, "N": N,
                              "per_step": count, "ms": kern,
                              "plain_ms": plain, "library_ms": lib,
-                             "bound_ms": b, "bound_by": by})
+                             "bound_ms": b, "bound_by": by,
+                             "ffma_bound_ms": ffma})
                 log(f"[time] pw_gemm {name} M={M}: {kern:.4f} ms (plain "
                     f"{plain:.4f}, torch.matmul on f32 {lib:.4f}, bound "
-                    f"{b:.4f} by {by})")
+                    f"{b:.4f} by {by}; FFMA bound {ffma:.4f})")
                 if M == 8:
                     per_step["ms"] += count * kern
                     per_step["plain_ms"] += count * plain
@@ -798,21 +966,27 @@ class Smoke:
         for M, N in DW_SHAPES:
             a, g = self.randn(K, M), self.randn(K, N)
             got = G.posit_gemm(a, g, cfg_a=None, cfg_b=None, transpose_a=True)
+            label = (f"f32 A [K={K}, M={M}] N={N} (split-K "
+                     f"{G.gemm_plan(M, N, K, ('f32', 'f32'), True).splits})")
+            self._repeat_same(f"transpose_a {label}", got, G.posit_gemm(
+                a, g, cfg_a=None, cfg_b=None, transpose_a=True))
             want = G.posit_gemm_plain(a, g, cfg_a=None, cfg_b=None,
                                       transpose_a=True)
-            tol = 2 * K * 2.0 ** -24 * (a.abs().T @ g.abs())
+            tol = gemm_tol(self.torch, a.T, g, K, True).float()
             worst = max(worst, self._within(
-                "posit_gemm_transpose_a", f"f32 A [K={K}, M={M}] N={N}",
-                got, want, tol))
+                "posit_gemm_transpose_a", label, got, want, tol))
             del a, g, got, want, tol
         a = ref.encode_ref(self.randn(K, 960), P16_2)
         g = self.randn(K, 320)
-        tol = 2 * K * 2.0 ** -24 * (ref.decode_ref(a, P16_2).abs().T @ g.abs())
+        tol = gemm_tol(self.torch, ref.decode_ref(a, P16_2).T, g, K,
+                       False).float()
+        got = G.posit_gemm(a, g, cfg_a=P16_2, cfg_b=None, transpose_a=True)
+        self._repeat_same("transpose_a posit16 A", got, G.posit_gemm(
+            a, g, cfg_a=P16_2, cfg_b=None, transpose_a=True))
         worst = max(worst, self._within(
             "posit_gemm_transpose_a", f"posit16 A [K={K}, M=960] N=320",
-            G.posit_gemm(a, g, cfg_a=P16_2, cfg_b=None, transpose_a=True),
-            G.posit_gemm_plain(a, g, cfg_a=P16_2, cfg_b=None,
-                               transpose_a=True), tol))
+            got, G.posit_gemm_plain(a, g, cfg_a=P16_2, cfg_b=None,
+                                    transpose_a=True), tol))
         self.details["training_kernels_worst_err_over_bound"] = worst
 
     def _time_flash(self, B, H, n_kv, S, D):
@@ -944,24 +1118,35 @@ class Smoke:
             lib = time_ms(torch, lambda a, g: torch.matmul(a.T, g), gsets,
                           ITERS if M < 10000 else 10, f"torch.matmul {at}")
             flops = 2.0 * M * N * K
-            b, by = bound(nb, flops)
+            b, by, ffma = tc_bound(nb, flops, gemm_products(None, None))
+            splits = G.gemm_plan(M, N, K, ("f32", "f32"), True).splits
             rows.append({"M": M, "N": N, "K": K, "per_step": count,
                          "ms": kern, "plain_ms": pl, "library_ms": lib,
-                         "bound_ms": b, "bound_by": by,
+                         "bound_ms": b, "bound_by": by, "ffma_bound_ms": ffma,
+                         "splits": splits,
                          "tflop_per_s": flops / kern / 1e9})
-            log(f"[time] posit_gemm transpose_a {at}: {kern:.4f} ms "
-                f"({flops / kern / 1e9:.1f} TFLOP/s; plain {pl:.4f}, "
-                f"torch.matmul(a.T, g) f32 {lib:.4f}, bound {b:.4f} by {by})")
+            log(f"[time] posit_gemm transpose_a {at} (split-K {splits}): "
+                f"{kern:.4f} ms ({flops / kern / 1e9:.1f} TFLOP/s; plain "
+                f"{pl:.4f}, torch.matmul(a.T, g) f32 {lib:.4f}, bound "
+                f"{b:.4f} by {by}, FFMA bound {ffma:.4f})")
             for key, val in (("ms", kern), ("plain_ms", pl),
                              ("library_ms", lib), ("bytes", nb),
                              ("flops", flops)):
                 total[key] += count * val
             del gsets
         self.details["transpose_a_shapes"] = rows
-        b, by = bound(total["bytes"], total["flops"])
+        b, by, ffma = tc_bound(total["bytes"], total["flops"],
+                               gemm_products(None, None))
+        self.details["transpose_a_ffma_bound_ms"] = ffma
+        log(f"[time] posit_gemm transpose_a, one step's 225 dW GEMMs: "
+            f"{total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, "
+            f"torch.matmul {total['library_ms']:.3f}, bound {b:.3f} by {by}, "
+            f"FFMA bound {ffma:.3f}) ({self.details['gpu']})")
         self.record("posit_gemm_transpose_a",
                     shape="the dW GEMMs of one training step: 225 at K=4096 "
-                          "(7 per layer x 32 + the tied table), f32",
+                          "(7 per layer x 32 + the tied table), f32; bound: "
+                          "6 bf16 products per f32 product over the tensor "
+                          "cores",
                     ms=total["ms"], plain_ms=total["plain_ms"],
                     library_ms=total["library_ms"], bound_ms=b, bound_by=by)
 
@@ -1134,6 +1319,8 @@ class Smoke:
                                           scale=K ** -0.5), cfg)
             kw = dict(cfg_a=cfg, cfg_b=cfg, transpose_b=tb)
             acc = G.posit_gemm(a, b, **kw)
+            self._repeat_same(f"quire GEMM K={K} N={N}", acc,
+                              G.posit_gemm(a, b, **kw))
             want = G.posit_gemm_plain(a, b, **kw)
             af, bf = ref.decode_ref(a, cfg), ref.decode_ref(b, cfg)
             tol = 2 * K * 2.0 ** -24 * (af.abs() @ (bf.T if tb else bf).abs())
@@ -1141,6 +1328,9 @@ class Smoke:
             worst = max(worst, float((diff / (tol + 1e-30)).max()))
             self.err("posit_gemm", diff.max())
             pos = G.posit_gemm(a, b, cfg_out=cfg, out_posit=True, **kw)
+            self._repeat_same(f"quire GEMM K={K} N={N} posit out", pos,
+                              G.posit_gemm(a, b, cfg_out=cfg, out_posit=True,
+                                           **kw))
             pos_plain = G.posit_gemm_plain(a, b, cfg_out=cfg, out_posit=True,
                                            **kw)
             # the epilogue rounds the kernel's own accumulator exactly once
@@ -1244,20 +1434,31 @@ class Smoke:
             libm = time_ms(torch, lambda bf: torch.matmul(af, bf),
                            [(bf,) for bf in bfs], ITERS, f"{at} torch.matmul")
             nbytes = 2 * 1024 * K + 2 * K * N + 2 * 1024 * N
-            b_ms, by = bound(nbytes, 2.0 * 1024 * K * N)
+            b_ms, by, ffma = tc_bound(nbytes, 2.0 * 1024 * K * N,
+                                      gemm_products(cfg, cfg))
+            splits = G.gemm_plan(1024, N, K, ("posit", "posit")).splits
             grows.append({"M": 1024, "K": K, "N": N, "ms": kern,
                           "plain_ms": pl, "library_ms": libm,
-                          "bound_ms": b_ms, "bound_by": by})
-            log(f"[time] posit_gemm p16 x p16 -> p16 M=1024 K={K} N={N}: "
-                f"{kern:.4f} ms (plain {pl:.4f}, torch.matmul on decoded f32 "
-                f"{libm:.4f}, bound {b_ms:.4f} by {by})")
+                          "bound_ms": b_ms, "bound_by": by,
+                          "ffma_bound_ms": ffma, "splits": splits})
+            log(f"[time] posit_gemm p16 x p16 -> p16 M=1024 K={K} N={N} "
+                f"(split-K {splits}): {kern:.4f} ms (plain {pl:.4f}, "
+                f"torch.matmul on decoded f32 {libm:.4f}, bound {b_ms:.4f} by "
+                f"{by}, FFMA bound {ffma:.4f})")
             for k, v in (("ms", kern), ("plain_ms", pl), ("library_ms", libm),
                          ("bytes", nbytes), ("flops", 2.0 * 1024 * K * N)):
                 total[k] += v
         self.details["quire_gemm_timings"] = grows
-        b_ms, by = bound(total["bytes"], total["flops"])
+        b_ms, by, ffma = tc_bound(total["bytes"], total["flops"],
+                                  gemm_products(cfg, cfg))
+        self.details["quire_gemm_ffma_bound_ms"] = ffma
+        log(f"[time] quire GEMM, sum of the three: {total['ms']:.4f} ms "
+            f"(plain {total['plain_ms']:.4f}, torch.matmul "
+            f"{total['library_ms']:.4f}, bound {b_ms:.4f} by {by}, FFMA "
+            f"bound {ffma:.4f}) ({self.details['gpu']})")
         self.record("posit_gemm", shape="quire GEMM p16 x p16 -> p16, M=1024, "
-                    "sum of 960x960 + 960x2560 + 2560x960",
+                    "sum of 960x960 + 960x2560 + 2560x960; bound: 4 bf16 "
+                    "products per f32 product over the tensor cores",
                     ms=total["ms"], plain_ms=total["plain_ms"],
                     library_ms=total["library_ms"], bound_ms=b_ms,
                     bound_by=by)
@@ -1304,7 +1505,13 @@ class Smoke:
         plain = ops.plain_counts()
         # ---- end of the counted run ----
 
-        expect = {"elementwise": 4, "divide": 6, "posit_gemm": 4}
+        pp = ("posit", "posit")
+        expect = {"elementwise": 4, "divide": 6, "posit_gemm": 4,
+                  "posit_gemm_reduce": splitk_reduces([
+                      (1024, 960, 960, pp, False, False),
+                      (1024, 2560, 960, pp, False, False),
+                      (1024, 960, 2560, pp, False, False),
+                      (1024, 960, 960, pp, False, False)])}
         if any(plain.values()):
             raise AssertionError(f"plain versions ran on the arithmetic "
                                  f"path: {plain}")
@@ -1430,7 +1637,7 @@ class Smoke:
             raise AssertionError(f"serving {arch}: plain versions ran: "
                                  f"{plain}")
         pre, dec = stats["prefill_steps"], stats["decode_steps"]
-        expect, ptq = serving_launches(cfg, pre, dec)
+        expect, ptq = serving_launches(cfg, pre, dec, gemm_weights(qparams))
         got = {k: launches[k] for k in expect}
         if got != expect or any(v for k, v in launches.items()
                                 if k not in expect):
@@ -1752,7 +1959,9 @@ class Smoke:
             if any(plain.values()):
                 raise AssertionError(f"{arch} {name}: plain versions ran on "
                                      f"the training path: {plain}")
-            expect = training_launches(cfg, steps, name == "p16")
+            expect = training_launches(
+                cfg, steps, name == "p16", gemm_weights(params),
+                data.global_batch * data.seq_len)
             got = {k: launches[k] for k in expect}
             if got != expect or any(v for k, v in launches.items()
                                     if k not in expect):
@@ -2742,7 +2951,7 @@ class Smoke:
                 f"{'' if lib is None else f'SDPA {lib:.4f}, '}bound "
                 f"{rec['bound_ms']:.4f} by {rec['bound_by']}) ({card})")
 
-    def check_recurrent_logits(self, arch, n_layers):
+    def check_recurrent_logits(self, arch, n_layers, gate=True):
         """Card vs CPU at full width and depth `n_layers`: the posit16 PTQ
         weights made on the card, a 4 x 32-token paged prefill and one
         decode step, the kernels on the card and the plain versions on the
@@ -2754,7 +2963,10 @@ class Smoke:
         and state policy kept: its plain GEMMs multiply the same values
         the plain posit GEMM would decode, without decoding 1.7 B weights
         (recurrentgemma's 256,000 x 4,096 table among them) in every
-        call."""
+        call.  With gate False (rwkv6-3b) the comparison is reported only:
+        there a pattern flipped in one layer's posit16 state carries into
+        the next layer's inputs, and `check_rwkv_layers` holds each layer
+        from the card's own inputs instead."""
         torch = self.torch
         import numpy as np
         from repro_torch import configs
@@ -2828,8 +3040,142 @@ class Smoke:
             f"CPU max|diff|/max|logit| = {rel:.3e} (tol {LOGITS_TOL}); "
             f"argmax equal: {same}; state patterns differing {n_diff} of "
             f"{n_all} (max {far} apart); CPU side {cpu_s:.1f} s")
-        if not (np.isfinite(rel) and rel <= LOGITS_TOL):
+        if gate and not (np.isfinite(rel) and rel <= LOGITS_TOL):
             raise AssertionError(f"{arch} logits disagree")
+
+    def check_rwkv_layers(self, arch="rwkv6-3b", n_layers=2):
+        """rwkv6-3b card vs CPU one layer at a time, at full width and depth
+        `n_layers`, on `check_recurrent_logits`' inputs (posit16 PTQ weights
+        made on the card, a 4 x 32-token paged prefill and one decode step).
+        The card runs the model with each layer's inputs recorded: its
+        hidden state, and the state pools it starts from (posit16 WKV
+        state and token shifts).  The CPU then runs every layer of both
+        steps from those same inputs, and the head from the card's last
+        hidden state, with the plain versions on the card-decoded weights.
+        Each layer's output must lie within LOGITS_TOL of the card's
+        (relative to its largest entry), and each step's logits within
+        LOGITS_TOL of the largest card logit.  Starting every layer from the
+        card's own inputs leaves only that layer's arithmetic between the
+        two: f32 sums in two orders (relative ~1e-6) and the posit16 state
+        patterns those differences flip inside the layer, each one posit16
+        step of one state entry; a flip no longer carries into the next
+        layer, as it does in the whole-model comparison.  The state
+        patterns that differ are reported per layer."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.core.array import PositArray
+        from repro_torch.core.types import P16_2
+        from repro_torch.models import blocks as MB
+        from repro_torch.models import transformer as T
+        from repro_torch.quant.policy import PositPolicy
+        from repro_torch.quant.ptq import quantize_for_serving
+        cfg = dataclasses.replace(configs.get_config(
+            arch, policy=PositPolicy(weights=P16_2, kv_cache=P16_2)),
+            n_layers=n_layers)
+        params = T.init_params(cfg, seed=0, device=self.dev)
+        qparams = quantize_for_serving(params, P16_2)
+        del params
+        rng = np.random.default_rng(5)
+        B, S, page, W = 4, 32, 16, 3
+        toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+
+        def cpu(tree):
+            if isinstance(tree, dict):
+                return {k: cpu(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [cpu(v) for v in tree]
+            if isinstance(tree, PositArray):
+                return PositArray(tree.bits.cpu(), tree.cfg)
+            return tree.detach().cpu() if torch.is_tensor(tree) else tree
+
+        records = []
+        layer = T._layer
+
+        def recording(x, p, cfg_, kind, positions, cache):
+            inputs = (cpu(x), cpu(positions), cpu(cache))
+            out = layer(x, p, cfg_, kind, positions, cache)
+            records.append((kind, inputs, cpu(out[0]), cpu(out[1])))
+            return out
+
+        t = torch.from_numpy(toks).to(self.dev)
+        pages = T.init_paged_pages(cfg, 1 + B * W, page, max_seqs=B,
+                                   device=self.dev)
+        table = (1 + torch.arange(B * W, dtype=torch.int32,
+                                  device=self.dev)).reshape(B, W)
+        z = torch.zeros(B, dtype=torch.int32, device=self.dev)
+        T._layer = recording
+        try:
+            with torch.inference_mode():
+                c = T.assemble_paged_caches(pages, table, z, z + S)
+                l1, _, c = T.forward(qparams, cfg, tokens=t[:, :S], caches=c)
+                c = T.assemble_paged_caches(T.extract_paged_pages(c), table,
+                                            z + S, z + 1)
+                l2, _, c = T.forward(qparams, cfg, tokens=t[:, S:], caches=c)
+        finally:
+            T._layer = layer
+        card_logits = [l1.float().cpu(), l2.float().cpu()]
+
+        def decoded(tree):
+            if isinstance(tree, dict):
+                return {k: decoded(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [decoded(v) for v in tree]
+            return getattr(tree, "to_f32", lambda: tree)().cpu()
+
+        cpu_params = decoded(qparams)
+        del qparams, c, pages
+        torch.cuda.empty_cache()
+        cpu_cfg = dataclasses.replace(cfg, policy=PositPolicy(
+            kv_cache=P16_2))
+        t0 = time.perf_counter()
+        rows, worst = [], 0.0
+        with torch.inference_mode():
+            for i, (kind, (x, pos, cache), y_card, nc_card) in \
+                    enumerate(records):
+                step, li = divmod(i, n_layers)
+                y, nc, _ = T._layer(x, cpu_params["layers"][li], cpu_cfg,
+                                    kind, pos, cache)
+                diff = float((y - y_card).abs().max())
+                rel = diff / float(y_card.abs().max())
+                upd = diff / float((y_card - x).abs().max())
+                n_diff = n_all = 0
+                for key in ("wkv", "tshift", "cshift"):
+                    a = getattr(nc[key], "bits", nc[key])
+                    b = getattr(nc_card[key], "bits", nc_card[key])
+                    n_diff += int((a != b).sum())
+                    n_all += a.numel()
+                worst = max(worst, rel)
+                rows.append({"step": ("prefill", "decode")[step],
+                             "layer": li, "rel_err": rel,
+                             "rel_err_of_update": upd,
+                             "state_patterns_differing": n_diff,
+                             "state_patterns": n_all})
+                log(f"[check] {arch} layer {li} {rows[-1]['step']} from the "
+                    f"card's inputs: max|diff|/max|out| = {rel:.3e} (tol "
+                    f"{LOGITS_TOL}; {upd:.3e} of the layer's update); state "
+                    f"patterns differing {n_diff} of {n_all}")
+            for step in range(2):
+                h = records[step * n_layers + n_layers - 1][2]
+                logits = MB.unembed(MB.rms_norm(h, cpu_params["ln_f"]),
+                                    cpu_params["embed"], cpu_cfg.policy)
+                want = card_logits[step]
+                rel = float((logits - want).abs().max() / want.abs().max())
+                worst = max(worst, rel)
+                rows.append({"step": ("prefill", "decode")[step],
+                             "layer": "head", "rel_err": rel})
+                log(f"[check] {arch} head {rows[-1]['step']} from the card's "
+                    f"last hidden state: max|diff|/max|logit| = {rel:.3e} "
+                    f"(tol {LOGITS_TOL})")
+        cpu_s = time.perf_counter() - t0
+        self.details[f"{arch}_layers"] = {"n_layers": n_layers,
+                                          "worst_rel_err": worst,
+                                          "rows": rows, "cpu_s": cpu_s}
+        log(f"[check] {arch} per layer, depth {n_layers}: worst "
+            f"{worst:.3e} of LOGITS_TOL {LOGITS_TOL} "
+            f"({worst / LOGITS_TOL:.1%}); CPU side {cpu_s:.1f} s")
+        if not (np.isfinite(worst) and worst <= LOGITS_TOL):
+            raise AssertionError(f"{arch} layers disagree")
 
     def _to(self, tree, dev):
         if isinstance(tree, dict):
@@ -2871,7 +3217,42 @@ TRAINING_KERNELS = ("flash_prefill", "flash_prefill_bwd_dq",
 SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
                    "paged_flash_decode", "paged_flash_prefill")
 
-def serving_launches(cfg, prefill_steps: int, decode_steps: int):
+PREFILL_ROWS = 8 * 128      # a prefill step's rows: max_seqs x chunk
+DECODE_ROWS = 8
+
+
+def gemm_weights(params) -> list[tuple[str, tuple[int, int]]]:
+    """(name, shape) of every 2-D weight a model multiplies through K2:
+    the "w" linears [K, N], the tied "table" [V, d] (transpose_b) and the
+    MoE "router" [d, E] (f32, through posit_gemm, in serving too)."""
+    out = []
+
+    def walk(t, name=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, k)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v, name)
+        else:
+            shape = tuple(getattr(t, "bits", t).shape)
+            if name in ("w", "table", "router") and len(shape) == 2:
+                out.append((name, shape))
+
+    walk(params)
+    return out
+
+
+def splitk_reduces(shapes) -> int:
+    """How many of the tiled K2 launches of `shapes` ((M, N, K, kinds,
+    transpose_a, transpose_b) each) the plan splits over K, each followed
+    by one launch of the split-K reduce."""
+    from repro_torch.kernels.posit_gemm import gemm_plan
+    return sum(gemm_plan(*sh).splits > 1 for sh in shapes)
+
+
+def serving_launches(cfg, prefill_steps: int, decode_steps: int,
+                     weights=()):
     """The launches one drain of `cfg` must make, and those of them that
     the PTQ makes (not per step).  Per attention layer and step: the paged
     append and attention, and the GEMMs (dense: 7 `pw_gemm`; MoE: 4
@@ -2883,7 +3264,11 @@ def serving_launches(cfg, prefill_steps: int, decode_steps: int):
     8 `pw_gemm` (5 block projections, 3 MLP), the RG-LRU scan, 2 encodes
     and 2 decodes (the conv tail: decoded, round-tripped, stored).  Per
     step the unembedding and the embedding rows' decode; the PTQ encodes
-    every weight table."""
+    every weight table.  A prefill step's `pw_gemm`s (M = 1,024 rows) and
+    the MoE router's `posit_gemm` (M = 8 or 1,024) run the tiled kernel:
+    each one its plan splits over K adds one split-K reduce
+    (`pw_gemm_reduce`, `posit_gemm_reduce`); `weights` (`gemm_weights` of
+    the served params) gives their shapes."""
     L = cfg.n_layers
     steps = prefill_steps + decode_steps
     kinds = [cfg.kind(i) for i in range(L)]
@@ -2895,6 +3280,14 @@ def serving_launches(cfg, prefill_steps: int, decode_steps: int):
               "paged_flash_prefill": n_attn * prefill_steps,
               "paged_append": n_attn * steps,
               "wkv_scan": n_rwkv * steps, "rglru_scan": n_rg * steps}
+    pw = [(PREFILL_ROWS, r, c, ("f32", "posit"), False, True)
+          if name == "table" else
+          (PREFILL_ROWS, c, r, ("f32", "posit"), False, False)
+          for name, (r, c) in weights if name != "router"]
+    routers = [(M, c, r, ("f32", "f32"), False, False)
+               for name, (r, c) in weights if name == "router"
+               for M in (DECODE_ROWS, PREFILL_ROWS)]
+    expect["pw_gemm_reduce"] = splitk_reduces(pw) * prefill_steps
     if cfg.moe is None:
         expect.update(pw_gemm=tables * steps,
                       decode_block=(1 + codec) * steps,
@@ -2903,6 +3296,9 @@ def serving_launches(cfg, prefill_steps: int, decode_steps: int):
         if n_rwkv or n_rg:
             raise NotImplementedError("MoE launch structure is for "
                                       "attention stacks")
+        expect.update(posit_gemm_reduce=(
+            splitk_reduces(routers[0::2]) * decode_steps
+            + splitk_reduces(routers[1::2]) * prefill_steps))
         expect.update(pw_gemm=(4 * L + 1) * steps, posit_gemm=L * steps,
                       grouped_gemm=3 * L * steps,
                       decode_block=(L + 1) * steps,
@@ -2910,7 +3306,8 @@ def serving_launches(cfg, prefill_steps: int, decode_steps: int):
     return expect, {"encode_block": tables}
 
 
-def training_launches(cfg, steps: int, p16: bool):
+def training_launches(cfg, steps: int, p16: bool, weights=(),
+                      tokens: int = 8 * 512):
     """The launches `steps` training steps of `cfg` must make.  Per layer
     the posit GEMM runs the attention projections (and, for MoE, the
     router): 7 per dense layer, 5 per MoE layer, + the tied LM head; each
@@ -2920,12 +3317,28 @@ def training_launches(cfg, steps: int, p16: bool):
     weights every float table is cast (one encode, one decode) in the
     forward and the recompute (7 per dense layer, 8 per MoE layer: the
     router and three expert tables in place of the MLP's three), and the
-    tied table 3 times (embed, unembed, its recompute)."""
+    tied table 3 times (embed, unembed, its recompute).  Each GEMM the
+    plan splits over K adds one split-K reduce (`posit_gemm_reduce`):
+    `weights` (`gemm_weights` of the trained params) gives the shapes at
+    M = `tokens` rows: the forward twice, dX and dW."""
     L = cfg.n_layers
+    f = ("f32", "f32")
+    per_step = 0
+    for name, (r, c) in weights:
+        if name == "table":                      # [V, d], transpose_b
+            fwd, dx, dw = ((tokens, r, c, f, False, True),
+                           (tokens, c, r, f, False, False),
+                           (r, c, tokens, f, True, False))
+        else:                                    # [K, N]
+            fwd, dx, dw = ((tokens, c, r, f, False, False),
+                           (tokens, r, c, f, False, True),
+                           (r, c, tokens, f, True, False))
+        per_step += splitk_reduces([fwd, fwd, dx, dw])
     g = (5 if cfg.moe else 7) * L + 1
     casts = (2 * (8 if cfg.moe else 7) * L + 3) if p16 else 0
     expect = {"posit_gemm": 4 * g * steps,
               "posit_gemm_transpose_a": g * steps,
+              "posit_gemm_reduce": per_step * steps,
               "flash_prefill": 2 * L * steps,
               "flash_prefill_bwd_dq": L * steps,
               "flash_prefill_bwd_dkv": L * steps,
@@ -2981,6 +3394,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write every number "
                     "to this JSON file")
+    ap.add_argument("--rwkv-layers", action="store_true", help="run only "
+                    "the per-layer rwkv6-3b card-vs-CPU check and print its "
+                    "numbers")
+    ap.add_argument("--src", default=None, help="the package root to run "
+                    "(default: src/ beside this script; another commit's "
+                    "unpacked src/ runs its kernels under this script's "
+                    "checks)")
     args = ap.parse_args()
 
     import torch
@@ -2989,7 +3409,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, os.path.abspath(args.src) if args.src
+                    else os.path.join(root, "src"))
     from repro_torch import resolve_device
     from repro_torch.kernels import build
 
@@ -2997,14 +3418,26 @@ def main() -> int:
     log(card)
     resolve_device("cuda")                      # pins TF32 off
     log(f"[build] {build.build_all():.1f} s (nvcc, sm_90a, in parallel); "
-        f"torch {torch.__version__} cuda {torch.version.cuda}")
+        f"torch {torch.__version__} cuda {torch.version.cuda}; package "
+        f"{os.path.dirname(build.__file__)}")
 
     s = Smoke(torch)
     s.details["gpu"] = card
+    if args.rwkv_layers:
+        s.check_rwkv_layers("rwkv6-3b", 2)
+        log(json.dumps(s.details["rwkv6-3b_layers"]))
+        return 0
+    regs = ptxas_report(build, "posit_gemm", ("gemm_mma_kernel",
+                                              "splitk_reduce_kernel"))
+    s.details["posit_gemm_ptxas"] = regs
+    log(f"[build] posit_gemm: {len(regs)} instances of the tiled kernel "
+        f"and its split-K reduce, registers "
+        f"{sorted(r['registers'] for r in regs)}, no spills")
     t0 = time.perf_counter()
     s.check_codec()
     s.check_append()
     s.check_gemm()
+    s.check_gemm_edges()
     s.check_attention()
     log(f"[phase] kernel checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3114,7 +3547,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"[phase] {arch} decode trace {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    s.check_recurrent_logits("rwkv6-3b", 2)
+    s.check_recurrent_logits("rwkv6-3b", 2, gate=False)
+    torch.cuda.empty_cache()
+    s.check_rwkv_layers("rwkv6-3b", 2)
     torch.cuda.empty_cache()
     s.check_recurrent_logits("recurrentgemma-9b", 3)
     torch.cuda.empty_cache()

@@ -38,9 +38,10 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _P),
     },
     "posit_gemm": {
-        "posit_pw_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-        "posit_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _P),
+        "posit_pw_gemm": (_P, _P, _P) + (_I,) * 7 + (_P,) + (_I,) * 4
+        + (_LL, _P),
+        "posit_gemm": (_P, _P, _P) + (_I,) * 14 + (_P,) + (_I,) * 4
+        + (_LL, _P),
     },
     "posit_elementwise": {
         "posit_elementwise": (_I, _P, _P, _P, _P, _LL, _I, _I, _I, _P),

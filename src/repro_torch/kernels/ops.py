@@ -68,15 +68,21 @@ def reset_counters() -> None:
         kernel.launches = 0
         plain.calls = 0
     _gemm.posit_gemm.transpose_a_launches = 0
+    _gemm.posit_gemm.reduce_launches = 0
+    _gemm.pw_gemm.reduce_launches = 0
     _ggemm.posit_grouped_gemm.transpose_b_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Launches per kernel; `posit_gemm_transpose_a` is the part of
     `posit_gemm`'s count that ran the dW form, `grouped_gemm_transpose_b`
-    the part of `grouped_gemm`'s that ran the dX form."""
+    the part of `grouped_gemm`'s that ran the dX form, and
+    `posit_gemm_reduce` / `pw_gemm_reduce` count the split-K reduce kernel
+    that followed a tiled launch of either."""
     counts = {name: k.launches for name, (k, _) in KERNELS.items()}
     counts["posit_gemm_transpose_a"] = _gemm.posit_gemm.transpose_a_launches
+    counts["posit_gemm_reduce"] = _gemm.posit_gemm.reduce_launches
+    counts["pw_gemm_reduce"] = _gemm.pw_gemm.reduce_launches
     counts["grouped_gemm_transpose_b"] = \
         _ggemm.posit_grouped_gemm.transpose_b_launches
     return counts

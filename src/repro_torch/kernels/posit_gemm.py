@@ -5,20 +5,104 @@ pallas_call at :139): posit or f32 operands, decoded to exact f32 as the
 tiles are staged, an f32 accumulator (the quire analogue), and either f32
 out or one RNE rounding to posit bits (`out_posit`: the quire's single
 rounding).  `pw_gemm` is its f32-activation form (``::pw_gemm``, :158), the
-serving path's linear and unembedding: a decode step (M = max_seqs rows)
-is bound by reading the weights, a prefill chunk by f32 FFMA; the source
-picks a skinny kernel for M <= 8 and a 64x64-tiled one above it.
+serving path's linear and unembedding.  A decode step (M <= 8 rows) runs a
+skinny kernel bound by reading the weights.  Every other call runs the
+tiled tensor-core kernel: each decoded operand element is split exactly
+into bf16 pieces (two for a posit with n <= 16, three for an f32) and
+their products, exact in bf16 x bf16 -> f32 `mma.sync`, are summed in f32;
+f32 x f32 keeps 6 of the 9 piece products, which moves a result by at
+most 2^-22 (|a| @ |b|) (derived in the source).  Its bound is bf16 tensor
+work (4 or 6 products per f32 product at 989 TFLOP/s), or bytes at small
+M.  `gemm_plan` mirrors the source's launch plan (tile, split-K slices,
+threads, shared bytes); the wrappers pass it in and the kernel refuses any
+other.  When the output tiles leave the last wave of SMs mostly idle and K
+is long, K is split into slices summed by a second kernel in a fixed order
+(no atomics), in an f32 workspace the wrapper allocates.  The plan counts
+one block per SM: it picks the split that wastes the fewest rounds of
+k-tiles to a partial last wave.
 `posit_gemm(transpose_a=True)` is the training backward's dW leg, dW =
-X^T G with X stored [k, m]: the tiled kernel's A loader reads the stored
-rows of k, so no transposed copy exists.  `pw_gemm` has no transpose_a,
-as in the reference.
+X^T G with X stored [k, m]; transposed operands are read through
+`ldmatrix.trans`, so no transposed copy exists.  `pw_gemm` has no
+transpose_a, as in the reference.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.types import PositConfig
 from repro_torch.kernels import build, ref
+
+# The plan constants of csrc/posit_gemm.cu (H100 SXM: 132 SMs).
+SMS = 132
+BK = 32                        # k per tile
+_PAD = 8                       # bf16 elements of padding per shared row
+STAGES = 2
+MAX_SPLITS = 8
+MIN_SLICE_TILES = 4            # k-tiles a split-K slice keeps
+# (BM, BN, warps along m, warps along n), largest first
+TILES = ((128, 128, 2, 4), (64, 64, 2, 2))
+SKINNY_M = 8                   # pw_gemm at M <= 8 runs the skinny kernels
+PIECES = {"f32": 3, "posit": 2}   # bf16 pieces per operand element
+
+
+class GemmPlan(NamedTuple):
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    splits: int                # split-K slices (1: none)
+    per: int                   # k-tiles per slice
+    threads: int
+    smem: int                  # dynamic shared bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_plan(M: int, N: int, K: int, kinds=("f32", "f32"),
+              transpose_a: bool = False,
+              transpose_b: bool = False) -> GemmPlan:
+    """Launch plan of the tiled tensor-core kernel for an [M, K] x [K, N]
+    product whose operands are of `kinds` ("f32" or "posit" each), as
+    ``csrc/posit_gemm.cu::make_plan`` computes it.  Per tile, largest
+    first: the split S (1, or 2..8 slices of at least MIN_SLICE_TILES
+    k-tiles, considered while the tiles fill under two waves) that takes
+    the fewest rounds of k-tiles on the SMs at one block each,
+    ceil(tiles S / SMS) * ceil(nk / S), where a split must save at least a
+    tenth; the tile is kept if its blocks are busy at least 3/4 of that
+    time, and the smallest tile regardless.  No slice is empty."""
+    pa, pb = PIECES[kinds[0]], PIECES[kinds[1]]
+    nk = _cdiv(max(K, 1), BK)
+    for i, (bm, bn, wm, wn) in enumerate(TILES):
+        tiles = _cdiv(M, bm) * _cdiv(N, bn)
+        cost1 = best = _cdiv(tiles, SMS) * nk
+        splits, per = 1, nk
+        if tiles < 2 * SMS:
+            for s in range(2, min(MAX_SPLITS, nk // MIN_SLICE_TILES) + 1):
+                p = _cdiv(nk, s)
+                se = _cdiv(nk, p)
+                c = _cdiv(tiles * se, SMS) * p
+                if c < best and 10 * c <= 9 * cost1:
+                    best, splits, per = c, se, p
+        if 4 * tiles * nk >= 3 * SMS * best or i == len(TILES) - 1:
+            break
+    a_rows, a_cols = (BK, bm) if transpose_a else (bm, BK)
+    b_rows, b_cols = (bn, BK) if transpose_b else (BK, bn)
+    smem = 2 * STAGES * (pa * a_rows * (a_cols + _PAD)
+                         + pb * b_rows * (b_cols + _PAD))
+    return GemmPlan(bm, bn, BK, STAGES, splits, per, wm * wn * 32, smem)
+
+
+def _plan_args(plan: GemmPlan, M: int, N: int, device):
+    """-> (the split-K workspace or None, the C entry's workspace pointer
+    and plan ints)."""
+    ws = (torch.empty((plan.splits, M, N), dtype=torch.float32,
+                      device=device) if plan.splits > 1 else None)
+    return ws, (ws.data_ptr() if ws is not None else None, plan.bm,
+                plan.bn, plan.splits, plan.threads, plan.smem)
 
 
 def pw_gemm_plain(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig,
@@ -59,11 +143,16 @@ def pw_gemm(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig, *,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
+    plan = (gemm_plan(M, N, K, ("f32", "posit"), False, transpose_b)
+            if M > SKINNY_M else None)
+    ws, args = (_plan_args(plan, M, N, x.device) if plan
+                else (None, (None, 0, 0, 0, 0, 0)))
     rc = lib.posit_pw_gemm(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(),
                            M, N, K, int(transpose_b),
                            build.DTYPE_CODE[w_bits.dtype], cfg.n, cfg.es,
-                           build.stream(x))
+                           *args, build.stream(x))
     pw_gemm.launches += 1
+    pw_gemm.reduce_launches += int(plan is not None and plan.splits > 1)
     build.check_launch(rc, "posit_pw_gemm")
     return out
 
@@ -130,12 +219,16 @@ def posit_gemm(a: torch.Tensor, b: torch.Tensor, *,
     out = torch.empty((M, N), dtype=odt, device=a.device)
     if M == 0 or N == 0:
         return out
+    kinds = tuple("f32" if c is None else "posit" for c in (cfg_a, cfg_b))
+    plan = gemm_plan(M, N, K, kinds, transpose_a, transpose_b)
+    ws, args = _plan_args(plan, M, N, a.device)
     rc = lib.posit_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
                         int(transpose_a), int(transpose_b), dta, na, esa,
                         dtb, nb, esb, build.DTYPE_CODE[odt], no, eso,
-                        build.stream(a))
+                        *args, build.stream(a))
     posit_gemm.launches += 1
     posit_gemm.transpose_a_launches += int(transpose_a)
+    posit_gemm.reduce_launches += int(plan.splits > 1)
     build.check_launch(rc, "posit_gemm")
     return out
 
@@ -143,5 +236,8 @@ def posit_gemm(a: torch.Tensor, b: torch.Tensor, *,
 pw_gemm.launches = 0
 posit_gemm.launches = 0
 posit_gemm.transpose_a_launches = 0     # the dW leg, counted in both
+# launches of the split-K reduce that followed a tiled launch
+pw_gemm.reduce_launches = 0
+posit_gemm.reduce_launches = 0
 pw_gemm_plain.calls = 0
 posit_gemm_plain.calls = 0
