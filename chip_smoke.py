@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. the card's name and power limit, then the build of every CUDA kernel
    from ``src/repro_torch/csrc`` (one nvcc per source, all in parallel),
    and ptxas's registers of every instance of the tiled posit GEMM and its
-   split-K reduce, none of which may spill;
+   split-K reduce and of the flash kernels (K7, K8, K9), none of which
+   may spill;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes of full-width smollm-360m, for posit16, posit8 and float pages:
    the codec bit-exact (exhaustive decode, encode over an f32 sweep), the
@@ -22,17 +23,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    PyTorch library call where one exists, and the card's bound;
 2d. the training kernels against their plain versions on the card: the
    contiguous flash prefill with its log-sum-exp (K7), the backward's dQ
-   (K8, D <= 128) and dK/dV (K9) passes at four head layouts (smollm's
-   G = 3, D = 64; olmoe's G = 1, D = 128; recurrentgemma's G = 16, D =
-   256; hubert-xlarge's bidirectional D = 80), each at a training shape
-   (8 x 512 queries over 512 keys) and an edge shape (128 queries over
-   512 keys, per-batch q_offset and kv_len, window 64, softcap 30, f32
-   and posit16 KV), rows that see no key exactly 0, the forward and K9
+   (K8) and dK/dV (K9) passes at four head layouts (smollm's G = 3, D =
+   64; olmoe's G = 1, D = 128; recurrentgemma's G = 16, D = 256;
+   hubert-xlarge's bidirectional D = 80), each at a training shape (8 x
+   512 queries over 512 keys) and an edge shape (128 queries over 512
+   keys, per-batch q_offset and kv_len, window 64, softcap 30, f32 and
+   posit16 KV), rows that see no key exactly 0, the forward, K8 and K9
    repeated bit-identical; posit_gemm's transpose_a (the dW leg) at the
    step's five dW shapes (split-K at four) and one posit16 A, each within
-   the bound of phase 2 and repeated bit-identical; their timings beside the plain versions,
-   torch.matmul and SDPA (both its GQA form and K/V expanded to every
-   query head; K7 and K9 also at G = 16, D = 256);
+   the bound of phase 2 and repeated bit-identical; their timings beside
+   the plain versions, torch.matmul and SDPA (both its GQA form and K/V
+   expanded to every query head; K7-K9 at smollm's, olmoe's and
+   recurrentgemma's head layouts);
 2c. the paper's arithmetic: the elementwise and divide kernels bit-exact
    against their plain versions (every posit8 pair at es 0..4, every
    posit8es2 fma triple, 2^26 seeded posit16 pairs and the edge patterns
@@ -876,22 +878,13 @@ class Smoke:
                                                     return_lse=True, **kw)
         delta = (do * po).sum(-1)
         bkw = dict(causal=causal, window=window, softcap=softcap)
-        if D <= 128:
-            dq, dk, dv = F.flash_prefill_bwd_contiguous(q, k, v, po, plse, do,
-                                                        kl, qo, **kw)
-            pdq, pdk, pdv = F.flash_prefill_bwd_contiguous_plain(
-                q, k, v, po, plse, do, kl, qo, **kw)
-            if (pdk is None) != (cfg is not None) or (dk is None) != (
-                    cfg is not None):
-                raise AssertionError("dK/dV must be None exactly for posit "
-                                     "KV")
-        else:                       # K8 takes D <= 128: dK/dV alone
-            dq = pdq = dk = dv = pdk = pdv = None
-            if cfg is None:
-                dk, dv = F.flash_prefill_bwd_dkv(q, k, v, do, plse, delta,
-                                                 kl, qo, **bkw)
-                pdk, pdv = F.flash_prefill_bwd_dkv_plain(
-                    q, k, v, do, plse, delta, kl, qo, **bkw)
+        dq, dk, dv = F.flash_prefill_bwd_contiguous(q, k, v, po, plse, do, kl,
+                                                    qo, **kw)
+        pdq, pdk, pdv = F.flash_prefill_bwd_contiguous_plain(
+            q, k, v, po, plse, do, kl, qo, **kw)
+        if (pdk is None) != (cfg is not None) or (dk is None) != (
+                cfg is not None):
+            raise AssertionError("dK/dV must be None exactly for posit KV")
         tol = self._attn_bounds(q, k, v, po, plse, do, kl, qo, cfg, causal,
                                 window, softcap)
         worst = 0.0
@@ -920,15 +913,19 @@ class Smoke:
         if repeat:
             o2, lse2 = F.flash_prefill_contiguous(q, k, v, kl, qo,
                                                   return_lse=True, **kw)
+            dq2 = F.flash_prefill_bwd_dq(q, k, v, do, plse, delta, kl, qo,
+                                         **kw)
             dk1, dv1 = F.flash_prefill_bwd_dkv(q, k, v, do, plse, delta, kl,
                                                qo, **bkw)
             dk2, dv2 = F.flash_prefill_bwd_dkv(q, k, v, do, plse, delta, kl,
                                                qo, **bkw)
             if not (torch.equal(o, o2) and torch.equal(lse, lse2)
-                    and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)):
+                    and torch.equal(dq, dq2) and torch.equal(dk1, dk2)
+                    and torch.equal(dv1, dv2)):
                 raise AssertionError(f"{label}: a repeated launch of the "
-                                     f"forward or K9 is not bit-identical")
-            log(f"[train-kernels] {label}: forward and K9 repeated, "
+                                     f"forward, K8 or K9 is not "
+                                     f"bit-identical")
+            log(f"[train-kernels] {label}: forward, K8 and K9 repeated, "
                 f"bit-identical")
         return worst
 
@@ -939,12 +936,12 @@ class Smoke:
         shape (8 x 512 queries over 512 f32 keys) and at an edge shape (128
         queries over 512 keys, per-batch q_offset and kv_len < Skv, window
         64, softcap 30; f32 and posit16 KV), against the plain versions
-        within the bounds of `_attn_bounds`; K8 only at D <= 128 (its
-        limit).  Rows that see no key must be exactly 0 on both sides, and
-        the forward and K9 launched twice on the training inputs must give
-        bit-identical results.  Then posit_gemm's transpose_a (the dW leg)
-        at the five training dW shapes and one posit16 A, within the f32
-        dot-product bound over K = 4,096."""
+        within the bounds of `_attn_bounds`.  Rows that see no key must be
+        exactly 0 on both sides, and the forward, K8 and K9 launched again
+        on the training inputs must give bit-identical results.  Then
+        posit_gemm's transpose_a (the dW leg) at the five training dW
+        shapes and one posit16 A, within the f32 dot-product bound over K =
+        4,096."""
         from repro_torch.core.types import P16_2
         from repro_torch.kernels import posit_gemm as G
         from repro_torch.kernels import ref
@@ -990,8 +987,8 @@ class Smoke:
         self.details["training_kernels_worst_err_over_bound"] = worst
 
     def _time_flash(self, B, H, n_kv, S, D):
-        """K7, K8 (D <= 128) and K9 at [B, H, S, D] causal over n_kv f32 kv
-        heads, each beside its plain version, its bound and two SDPA
+        """K7, K8 and K9 at [B, H, S, D] causal over n_kv f32 kv heads,
+        each beside its plain version, its bound and two SDPA
         yardsticks: GQA (enable_gqa=True) and K/V expanded to H heads
         (repeat_interleave outside the timed region); the backward's
         yardstick is SDPA's forward+backward less its forward.  Causal work
@@ -1050,8 +1047,6 @@ class Smoke:
                     F.flash_prefill_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                   kl, qo),
                 8 * D * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)}
-        if D > 128:
-            del kern_fns["flash_prefill_bwd_dq"]
         it = 20
         lib = {}
         for form in ("gqa", "expanded"):
@@ -1082,10 +1077,11 @@ class Smoke:
 
     def time_training_kernels(self):
         """K7-K9 at one layer of the training step ([8,15,512,64] causal,
-        f32 KV) and K7, K9 at recurrentgemma-9b's head layout over 8 x 512
-        tokens ([8,16,512,256] on one kv head), with `_time_flash`'s
-        yardsticks; transpose_a at the step's dW shapes (K = 4,096), each
-        beside its plain version, its library call and its bound."""
+        f32 KV), at olmoe-1b-7b's head layout ([8,16,512,128], one kv head
+        per query head) and at recurrentgemma-9b's over 8 x 512 tokens
+        ([8,16,512,256] on one kv head), with `_time_flash`'s yardsticks;
+        transpose_a at the step's dW shapes (K = 4,096), each beside its
+        plain version, its library call and its bound."""
         torch = self.torch
         from repro_torch.kernels import posit_gemm as G
         shape = "one layer of the training step: [8,15,512,64] causal, f32 KV"
@@ -1096,6 +1092,8 @@ class Smoke:
                 "; library: the faster of SDPA's GQA and expanded-KV forms, "
                 + ("its backward (dQ, dK, dV together) = forward+backward - "
                    "forward" if "bwd" in name else "forward")), **row)
+        self.details["flash_times_d128_g1"] = self._time_flash(
+            8, 16, 16, 512, 128)
         self.details["flash_times_d256_g16"] = self._time_flash(
             8, 16, 1, 512, 256)
         torch.cuda.empty_cache()
@@ -2004,9 +2002,10 @@ class Smoke:
     def _profile_step(self, cfg, params, opt, data, step_p50_s):
         """One more training step (fresh AdamW state, outside the counted
         runs, after one unprofiled warm step) under torch.profiler: device
-        time by kernel and the busy share, over the profiled step's own
-        wall time (a lower bound: the profiler adds host cost) and over the
-        unprofiled leg's step p50."""
+        time by kernel (the top 8, and the flash kernels K7-K9 with their
+        launch counts whatever their rank) and the busy share, over the
+        profiled step's own wall time (a lower bound: the profiler adds
+        host cost) and over the unprofiled leg's step p50."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.data.pipeline import global_batch_at
@@ -2033,7 +2032,11 @@ class Smoke:
                  "device_busy_share_unprofiled":
                      busy / 1e6 / step_p50_s if busy else None,
                  "device_kernels": sum(v[1] for v in by_name.values()),
-                 "top_kernels_ms": {k: v[0] / 1e3 for k, v in top}}
+                 "top_kernels_ms": {k: v[0] / 1e3 for k, v in top},
+                 "flash_kernels": {
+                     k: {"ms": by_name.get(k, [0.0, 0])[0] / 1e3,
+                         "launches": by_name.get(k, [0.0, 0])[1]}
+                     for k in FLASH_KERNEL_SYMBOLS}}
         if not busy:
             log("[train] the profiler saw no device time: busy share not "
                 "measured")
@@ -2047,6 +2050,9 @@ class Smoke:
             f"({self.details['gpu']})")
         for k, v in trace["top_kernels_ms"].items():
             log(f"[train]   {v:9.3f} ms  {k}")
+        for k, v in trace["flash_kernels"].items():
+            log(f"[train]   flash: {v['ms']:9.3f} ms in {v['launches']} "
+                f"launches  {k}")
         return trace
 
     def train_resume(self, root):
@@ -3212,6 +3218,9 @@ FLASH_LAYOUTS = [("smollm-360m", 15, 5, 64, True),
                  ("olmoe-1b-7b", 16, 16, 128, True),
                  ("recurrentgemma-9b", 16, 1, 256, True),
                  ("hubert-xlarge", 16, 16, 80, False)]
+# the flash kernels' device symbols (K7 and K14, K8, K9)
+FLASH_KERNEL_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                        "flash_bwd_dkv_kernel")
 TRAINING_KERNELS = ("flash_prefill", "flash_prefill_bwd_dq",
                     "flash_prefill_bwd_dkv", "posit_gemm_transpose_a")
 SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
@@ -3433,6 +3442,11 @@ def main() -> int:
     log(f"[build] posit_gemm: {len(regs)} instances of the tiled kernel "
         f"and its split-K reduce, registers "
         f"{sorted(r['registers'] for r in regs)}, no spills")
+    regs = ptxas_report(build, "flash_prefill", FLASH_KERNEL_SYMBOLS)
+    s.details["flash_prefill_ptxas"] = regs
+    log("[build] flash_prefill: " + ", ".join(
+        f"{r['kernel']} {r['registers']}" for r in regs)
+        + " registers, no spills")
     t0 = time.perf_counter()
     s.check_codec()
     s.check_append()

@@ -19,7 +19,8 @@
 //
 // Bound on an H100.  Every kernel does O(Sq * Skv * D) flops per head on
 // O((Sq + Skv) * D) bytes: at the training shapes (512 x 512, D = 64) that
-// is thousands of flops per byte, so f32 FFMA throughput bounds them.  No
+// is thousands of flops per byte, so f32 FFMA throughput bounds them (per
+// visible query-key pair: 4 D flops in K7, 6 D in K8, 8 D in K9).  No
 // tensor cores: TF32 would round the f32 activations the reference
 // multiplies exactly (the same reason as the GEMM).
 //
@@ -44,11 +45,18 @@
 //     between the two products, inside the warp that owns its rows.  Only
 //     key tiles some row may see are visited, and per-element masks run
 //     only on edge tiles.  One block barrier per K/V tile.
-//   K8: one block per (32-query tile, kv head, sequence), one thread per
-//     query row of the G heads of the group (G * 32 threads); q, dO and
-//     the dQ accumulator live in registers; the block decodes each 32-key
-//     tile of K and V into shared memory once for all G heads and each row
-//     walks only the keys its masks let it see.
+//   K8: K7's block, rows, staging and barrier, with dO beside Q in shared
+//     memory for the whole sweep and lse and delta of each thread's 4 rows
+//     in registers.  Per K/V tile: S = Q K^T and dP = dO V^T as 4 x BN/16
+//     register tiles, P = exp(s - lse) and dS = P (dP - delta) dcap in
+//     registers (masked on edge tiles only), dS^T through shared memory
+//     inside the warp that owns its rows, then dQ += dS K into a 4 x D/16
+//     register tile, scaled and written once.  K/V tiles of 32 keys at
+//     D <= 64 and 16 above (two blocks a SM at D <= 128; Q + dO for 64
+//     rows take 128 KB at D = 256), V stored like K with a padded row
+//     stride since both are read by key row.  Nothing crosses blocks: a
+//     repeated launch is bit-identical, and G (any H % n_kv == 0) only
+//     sets the grid.
 //   K9: one block per (32-key tile, kv head, sequence), 128 threads (256
 //     above D = 128).  K and V of the tile stay in shared memory; the block
 //     sweeps the flat rows of all G heads that can see its keys in tiles of
@@ -68,9 +76,7 @@
 namespace {
 
 constexpr float kNeg = -1e30f;        // repro's _NEG
-constexpr int BQ = 32;                // query rows per head per block (K8)
-constexpr int BK = 32;                // keys per shared tile (K8)
-constexpr int FT = 256;               // threads per block (K7): 16 x 16
+constexpr int FT = 256;               // threads per block (K7, K8): 16 x 16
 constexpr int BKV = 32;               // keys per block (K9): 4 per thread row
 constexpr int KLDP = BKV + 4;         // row stride of K9's P / dS tiles
 
@@ -84,6 +90,19 @@ struct FwdTile {
   static constexpr int BM = 16 * RM;
   static constexpr int BN = DMAX <= 64 ? 64 : 32;
   static constexpr int LDP = BM + 4;            // row stride of P^T
+  static constexpr int MIN_BLOCKS = DMAX <= 128 ? 2 : 1;
+};
+
+// K8 tile per head-width class: K7's 64 flat rows, 4 a thread; BN keys
+// per K/V tile, two blocks a SM (registers capped at 128) at D <= 128.
+// Tiles of 64 keys at D <= 64 and 32 at D <= 128 (one block a SM, for
+// shared memory) timed the same on an H100.
+template <int DMAX>
+struct DqTile {
+  static constexpr int RM = 4;
+  static constexpr int BM = 16 * RM;
+  static constexpr int BN = DMAX <= 64 ? 32 : 16;
+  static constexpr int LDS = BM + 4;            // row stride of dS^T
   static constexpr int MIN_BLOCKS = DMAX <= 128 ? 2 : 1;
 };
 
@@ -112,6 +131,13 @@ size_t fwd_shmem(int D) {
   return sizeof(float) * (static_cast<size_t>(F::BM) * D +
                           2 * F::BN * pad_ld(D) + 2 * F::BN * D +
                           F::BN * F::LDP);
+}
+
+template <int DMAX>
+size_t dq_shmem(int D) {
+  using F = DqTile<DMAX>;
+  return sizeof(float) * (2 * static_cast<size_t>(F::BM) * D +
+                          4 * F::BN * pad_ld(D) + F::BN * F::LDS);
 }
 
 template <int DMAX>
@@ -162,34 +188,6 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 
 __device__ __forceinline__ float comp(float4 v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// dot(r, s) over d < D: r in registers, s contiguous (a broadcast read).
-template <int DMAX>
-__device__ __forceinline__ float dot_rs(const float (&r)[DMAX],
-                                        const float* s, int D) {
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-  for (int d = 0; d < DMAX; d += 4) {
-    if (d < D) {
-      a0 = fmaf(r[d], s[d], a0);
-      a1 = fmaf(r[d + 1], s[d + 1], a1);
-      a2 = fmaf(r[d + 2], s[d + 2], a2);
-      a3 = fmaf(r[d + 3], s[d + 3], a3);
-    }
-  }
-  return (a0 + a1) + (a2 + a3);
-}
-
-// Keys [lo, hi) of the tile at j0 that the row at qpos sees.
-__device__ __forceinline__ void row_keys(int j0, int kl, int qpos, int causal,
-                                         int window, bool live, int* lo,
-                                         int* hi) {
-  int a = j0, z = min(j0 + BK, kl);
-  if (causal) z = min(z, qpos + 1);
-  if (window > 0) a = max(a, qpos - window + 1);
-  *lo = a;
-  *hi = live ? z : a;
 }
 
 // Key range [*lo, *hi) any row of the query positions [q_first, q_last]
@@ -252,22 +250,23 @@ __device__ __forceinline__ float4 decode4(unsigned r, int n, int es) {
                      posit_decode(static_cast<int32_t>(r >> 24), n, es));
 }
 
-// K/V staging of K7: tile rows [j0, j0 + BN) of kv head row kvrow0, keys
-// at or past kv_hi zero.  Chunk c (4 values) is key c / D4, columns
-// 4 (c % D4).  f32 goes by cp.async; posit is loaded raw into registers
-// (fwd_load_raw) and decoded into shared memory later (fwd_store_raw).
+// K/V staging of K7 and K8: tile rows [j0, j0 + BN) of kv head row
+// kvrow0 (row strides ldk and ldv in shared memory), keys at or past kv_hi
+// zero.  Chunk c (4 values) is key c / D4, columns 4 (c % D4).  f32 goes
+// by cp.async; posit is loaded raw into registers (fwd_load_raw) and
+// decoded into shared memory later (fwd_store_raw).
 template <int BN>
 __device__ __forceinline__ void fwd_copy_f32(float* ks, float* vs,
                                              const float* k, const float* v,
                                              size_t kvrow0, int j0, int kv_hi,
-                                             int D, int ldk) {
+                                             int D, int ldk, int ldv) {
   const int D4 = D / 4;
   for (int c = threadIdx.x; c < BN * D4; c += FT) {
     const int p = c / D4, d4 = c - p * D4;
     const bool ok = j0 + p < kv_hi;
     const size_t src = (kvrow0 + (ok ? j0 + p : 0)) * D + 4 * d4;
     cp_async16(ks + p * ldk + 4 * d4, k + src, ok);
-    cp_async16(vs + p * D + 4 * d4, v + src, ok);
+    cp_async16(vs + p * ldv + 4 * d4, v + src, ok);
   }
 }
 
@@ -291,7 +290,8 @@ __device__ __forceinline__ void fwd_load_raw(
 template <typename T, int BN, int CH>
 __device__ __forceinline__ void fwd_store_raw(
     float* ks, float* vs, const typename Raw4<T>::type (&kr)[CH],
-    const typename Raw4<T>::type (&vr)[CH], int D, int ldk, int n, int es) {
+    const typename Raw4<T>::type (&vr)[CH], int D, int ldk, int ldv, int n,
+    int es) {
   const int D4 = D / 4;
 #pragma unroll
   for (int cc = 0; cc < CH; ++cc) {
@@ -299,7 +299,7 @@ __device__ __forceinline__ void fwd_store_raw(
     if (c < BN * D4) {
       const int p = c / D4, d4 = c - p * D4;
       st4(ks + p * ldk + 4 * d4, decode4(kr[cc], n, es));
-      st4(vs + p * D + 4 * d4, decode4(vr[cc], n, es));
+      st4(vs + p * ldv + 4 * d4, decode4(vr[cc], n, es));
     }
   }
 }
@@ -376,10 +376,10 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
 
   if (n_tiles > 0) {
     if constexpr (kF32) {
-      fwd_copy_f32<BN>(k_s, v_s, k, v, kvrow0, j_start, kv_hi, D, ldk);
+      fwd_copy_f32<BN>(k_s, v_s, k, v, kvrow0, j_start, kv_hi, D, ldk, D);
     } else {
       fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j_start, kv_hi, D);
-      fwd_store_raw<T, BN, CH>(k_s, v_s, k_raw, v_raw, D, ldk, n, es);
+      fwd_store_raw<T, BN, CH>(k_s, v_s, k_raw, v_raw, D, ldk, D, n, es);
     }
   }
   cp_async_commit();                             // Q (and the first tile)
@@ -392,7 +392,7 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
     if (more) {
       if constexpr (kF32)
         fwd_copy_f32<BN>(k_s + nb * BN * ldk, v_s + nb * BN * D, k, v,
-                         kvrow0, j0 + BN, kv_hi, D, ldk);
+                         kvrow0, j0 + BN, kv_hi, D, ldk, D);
       else
         fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j0 + BN, kv_hi,
                                 D);
@@ -496,7 +496,7 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
     if constexpr (!kF32) {
       if (more)
         fwd_store_raw<T, BN, CH>(k_s + nb * BN * ldk, v_s + nb * BN * D,
-                                 k_raw, v_raw, D, ldk, n, es);
+                                 k_raw, v_raw, D, ldk, D, n, es);
     }
   }
   cp_async_wait<0>();
@@ -527,73 +527,218 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
 }
 
 // ---- K8: dQ --------------------------------------------------------------
-// Shared memory: k [BK*D], v [BK*D].
+// Shared memory: q and dO [BM][D] each, k and v [2][BN][pad_ld(D)] each,
+// dS^T [BN][LDS].  Thread (ty, tx) owns flat rows ty*RM .. ty*RM + RM-1
+// (dS^T passes between the lanes of the warp that owns them), keys tx +
+// 16 c of each tile and float4 columns tx + 16 nc of dQ.  Staging and the
+// one block barrier per K/V tile as in K7.
 template <typename T, int DMAX>
-__global__ void flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(FT, DqTile<DMAX>::MIN_BLOCKS)
+    flash_bwd_dq_kernel(
     const float* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ kv_len, const int* __restrict__ q_offset,
     float* __restrict__ dq, int H, int n_kv, int Sq, int Skv, int D,
     int causal, int window, float softcap, float scale, int n, int es) {
+  using F = DqTile<DMAX>;
+  constexpr int RM = F::RM, BM = F::BM, BN = F::BN, LDS = F::LDS;
+  constexpr int RN = BN / 16;                    // keys per thread (S, dP)
+  constexpr int NC = DMAX / 64;                  // float4 columns (dQ)
+  constexpr int CH = BN * DMAX / 4 / FT;         // K (V) chunks per thread
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   const int G = H / n_kv;
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  float* k_s = smem;
-  float* v_s = k_s + BK * D;
+  const int D4 = D / 4, ldk = pad_ld(D);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // the last row tiles see the most keys under a causal mask: run first
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nrows = G * Sq;
+  float* q_s = smem;
+  float* o_s = q_s + BM * D;
+  float* k_s = o_s + BM * D;
+  float* v_s = k_s + 2 * BN * ldk;
+  float* ds_s = v_s + 2 * BN * ldk;
 
-  const int row = qt * BQ + tid % BQ;
-  const int head = h * G + tid / BQ;
-  const bool live = row < Sq;
   const int qo = q_offset[b];
-  const int qpos = qo + row;
   const int kl = min(kv_len[b], Skv);
-  const size_t ridx = (static_cast<size_t>(b) * H + head) * Sq + row;
+  const size_t qrow0 = (static_cast<size_t>(b) * H + h * G) * Sq;
+  const size_t kvrow0 = (static_cast<size_t>(b) * n_kv + h) * Skv;
 
-  float qr[DMAX], dor[DMAX], acc[DMAX];
-#pragma unroll
-  for (int d = 0; d < DMAX; ++d) {
-    qr[d] = (live && d < D) ? q[ridx * D + d] : 0.0f;
-    dor[d] = (live && d < D) ? dout[ridx * D + d] : 0.0f;
-    acc[d] = 0.0f;
+  // the Q and dO tiles: flat row i -> head h*G + i % G, query row i / G
+  for (int c = tid; c < BM * D4; c += FT) {
+    const int rr = c / D4, d4 = c - rr * D4;
+    const int i = i0 + rr;
+    const bool ok = i < nrows;
+    const size_t row = ok ? qrow0 + static_cast<size_t>(i % G) * Sq + i / G
+                          : qrow0;
+    cp_async16(q_s + rr * D + 4 * d4, q + row * D + 4 * d4, ok);
+    cp_async16(o_s + rr * D + 4 * d4, dout + row * D + 4 * d4, ok);
   }
-  const float L = live ? lse[ridx] : 0.0f;
-  const float dl = live ? delta[ridx] : 0.0f;
+  float L[RM], dl[RM];
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    const int i = i0 + ty * RM + a;
+    const size_t row = qrow0 + static_cast<size_t>(i % G) * Sq + i / G;
+    L[a] = i < nrows ? lse[row] : 0.0f;
+    dl[a] = i < nrows ? delta[row] : 0.0f;
+  }
 
+  const int i_last = min(i0 + BM, nrows) - 1;
+  const int q_first = qo + i0 / G, q_last = qo + i_last / G;
   int kv_lo, kv_hi;
-  tile_keys(qo + qt * BQ, qo + min(qt * BQ + BQ, Sq) - 1, kl, causal, window,
-            &kv_lo, &kv_hi);
-  const size_t kvbase = (static_cast<size_t>(b) * n_kv + h) * Skv * D;
-  for (int j0 = (kv_lo / BK) * BK; j0 < kv_hi; j0 += BK) {
-    const int nkd = min(kv_hi - j0, BK) * D;
-    for (int i = tid; i < nkd; i += nt) {
-      k_s[i] = load_value<T>(k, kvbase + static_cast<size_t>(j0) * D + i, n,
-                             es);
-      v_s[i] = load_value<T>(v, kvbase + static_cast<size_t>(j0) * D + i, n,
-                             es);
-    }
-    __syncthreads();
-    int lo, hi;
-    row_keys(j0, kl, qpos, causal, window, live, &lo, &hi);
-    for (int p = lo - j0; p < hi - j0; ++p) {
-      float dcap;
-      const float s = cap_score(dot_rs<DMAX>(qr, k_s + p * D, D), scale,
-                                softcap, &dcap);
-      const float pr = expf(s - L);
-      const float dp = dot_rs<DMAX>(dor, v_s + p * D, D);
-      const float ds = pr * (dp - dl) * dcap;
+  tile_keys(q_first, q_last, kl, causal, window, &kv_lo, &kv_hi);
+  const int j_start = (kv_lo / BN) * BN;
+  const int n_tiles = kv_hi > j_start ? (kv_hi - j_start + BN - 1) / BN : 0;
+
+  typename Raw4<T>::type k_raw[kF32 ? 1 : CH], v_raw[kF32 ? 1 : CH];
+  float acc[RM][NC][4];
 #pragma unroll
-      for (int d = 0; d < DMAX; ++d)
-        if (d < D) acc[d] = fmaf(ds, k_s[p * D + d], acc[d]);
+  for (int a = 0; a < RM; ++a)
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][nc][e] = 0.0f;
+
+  if (n_tiles > 0) {
+    if constexpr (kF32) {
+      fwd_copy_f32<BN>(k_s, v_s, k, v, kvrow0, j_start, kv_hi, D, ldk, ldk);
+    } else {
+      fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j_start, kv_hi, D);
+      fwd_store_raw<T, BN, CH>(k_s, v_s, k_raw, v_raw, D, ldk, ldk, n, es);
     }
-    __syncthreads();
   }
-  if (live) {
+  cp_async_commit();                             // Q, dO (and the first tile)
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();        // tile t landed; every warp is done with t - 1
+    const int j0 = j_start + t * BN;
+    const int nb = (t + 1) & 1;
+    const bool more = t + 1 < n_tiles;
+    if (more) {
+      if constexpr (kF32)
+        fwd_copy_f32<BN>(k_s + nb * BN * ldk, v_s + nb * BN * ldk, k, v,
+                         kvrow0, j0 + BN, kv_hi, D, ldk, ldk);
+      else
+        fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j0 + BN, kv_hi,
+                                D);
+    }
+    cp_async_commit();
+    const float* ks = k_s + (t & 1) * BN * ldk;
+    const float* vs = v_s + (t & 1) * BN * ldk;
+
+    // S = Q K^T and dP = dO V^T: rows ty*RM + a, keys tx + 16 c
+    float s[RM][RN], dp[RM][RN];
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d)
-      if (d < D) dq[ridx * D + d] = acc[d] * scale;
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        s[a][c] = 0.0f;
+        dp[a][c] = 0.0f;
+      }
+#pragma unroll 1
+    for (int d4 = 0; d4 < D4; ++d4) {
+      float4 kb[RN];
+#pragma unroll
+      for (int c = 0; c < RN; ++c)
+        kb[c] = ld4(ks + (tx + 16 * c) * ldk + 4 * d4);
+#pragma unroll
+      for (int a = 0; a < RM; ++a) {
+        const float4 qa = ld4(q_s + (ty * RM + a) * D + 4 * d4);
+#pragma unroll
+        for (int c = 0; c < RN; ++c) s[a][c] = dot4(qa, kb[c], s[a][c]);
+      }
+    }
+#pragma unroll 1
+    for (int d4 = 0; d4 < D4; ++d4) {
+      float4 vb[RN];
+#pragma unroll
+      for (int c = 0; c < RN; ++c)
+        vb[c] = ld4(vs + (tx + 16 * c) * ldk + 4 * d4);
+#pragma unroll
+      for (int a = 0; a < RM; ++a) {
+        const float4 oa = ld4(o_s + (ty * RM + a) * D + 4 * d4);
+#pragma unroll
+        for (int c = 0; c < RN; ++c) dp[a][c] = dot4(oa, vb[c], dp[a][c]);
+      }
+    }
+
+    // dS = P (dP - delta) dcap, P = exp(s - lse), masked on edge tiles
+    // only; dS^T into shared memory
+    const bool full = j0 + BN <= kl && i0 + BM <= nrows &&
+                      (!causal || j0 + BN - 1 <= q_first) &&
+                      (window <= 0 || q_last - j0 < window);
+#pragma unroll
+    for (int a = 0; a < RM; ++a) {
+      const int i = i0 + ty * RM + a;
+      const int qpos = qo + i / G;
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        const bool ok = full || (i < nrows && visible(j0 + tx + 16 * c, qpos,
+                                                      kl, causal, window));
+        float dcap;
+        const float sv = cap_score(s[a][c], scale, softcap, &dcap);
+        s[a][c] = ok ? expf(sv - L[a]) * (dp[a][c] - dl[a]) * dcap : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < RN; ++c)
+#pragma unroll
+      for (int a = 0; a < RM; a += 4)
+        st4(ds_s + (tx + 16 * c) * LDS + ty * RM + a,
+            make_float4(s[a][c], s[a + 1][c], s[a + 2][c], s[a + 3][c]));
+    __syncwarp();
+
+    // dQ += dS K: rows ty*RM + a, float4 columns tx + 16 nc
+    const int nk = min(BN, kv_hi - j0);
+#pragma unroll 2
+    for (int p = 0; p < nk; ++p) {
+      float dsr[RM];
+#pragma unroll
+      for (int a = 0; a < RM; a += 4) {
+        const float4 da = ld4(ds_s + p * LDS + ty * RM + a);
+        dsr[a] = da.x;
+        dsr[a + 1] = da.y;
+        dsr[a + 2] = da.z;
+        dsr[a + 3] = da.w;
+      }
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc) {
+        const int c = tx + 16 * nc;
+        if (c < D4) {
+          const float4 kv = ld4(ks + p * ldk + 4 * c);
+#pragma unroll
+          for (int a = 0; a < RM; ++a) {
+            acc[a][nc][0] = fmaf(dsr[a], kv.x, acc[a][nc][0]);
+            acc[a][nc][1] = fmaf(dsr[a], kv.y, acc[a][nc][1]);
+            acc[a][nc][2] = fmaf(dsr[a], kv.z, acc[a][nc][2]);
+            acc[a][nc][3] = fmaf(dsr[a], kv.w, acc[a][nc][3]);
+          }
+        }
+      }
+    }
+    if constexpr (!kF32) {
+      if (more)
+        fwd_store_raw<T, BN, CH>(k_s + nb * BN * ldk, v_s + nb * BN * ldk,
+                                 k_raw, v_raw, D, ldk, ldk, n, es);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    const int i = i0 + ty * RM + a;
+    if (i >= nrows) continue;
+    const size_t row = qrow0 + static_cast<size_t>(i % G) * Sq + i / G;
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc) {
+      const int c = tx + 16 * nc;
+      if (c < D4)
+        st4(dq + row * D + 4 * c,
+            make_float4(acc[a][nc][0] * scale, acc[a][nc][1] * scale,
+                        acc[a][nc][2] * scale, acc[a][nc][3] * scale));
+    }
   }
 }
 
@@ -871,14 +1016,15 @@ int dispatch_fwd(const Args& a, int threads, size_t shmem, cudaStream_t st) {
 }
 
 template <typename T, int DMAX>
-int launch_dq(const Args& a, cudaStream_t st) {
+int launch_dq(const Args& a, int threads, size_t shmem, cudaStream_t st) {
+  if (threads != FT || shmem != dq_shmem<DMAX>(a.D))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const int G = a.H / a.n_kv;
-  const int nt = G * BQ;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.n_kv, a.B);
-  const size_t shmem = sizeof(float) * 2 * BK * a.D;
+  constexpr int BM = DqTile<DMAX>::BM;
+  dim3 grid((G * a.Sq + BM - 1) / BM, a.n_kv, a.B);
   cudaError_t e = allow_shmem(flash_bwd_dq_kernel<T, DMAX>, shmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_kernel<T, DMAX><<<grid, nt, shmem, st>>>(
+  flash_bwd_dq_kernel<T, DMAX><<<grid, FT, shmem, st>>>(
       a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.dout,
       a.lse_in, a.delta, a.kv_len, a.q_offset, a.out, a.H, a.n_kv, a.Sq,
       a.Skv, a.D, a.causal, a.window, a.softcap, a.scale, a.n, a.es);
@@ -886,9 +1032,10 @@ int launch_dq(const Args& a, cudaStream_t st) {
 }
 
 template <typename T>
-int dispatch_dq(const Args& a, cudaStream_t st) {
-  if (a.D <= 64) return launch_dq<T, 64>(a, st);
-  if (a.D <= 128) return launch_dq<T, 128>(a, st);
+int dispatch_dq(const Args& a, int threads, size_t shmem, cudaStream_t st) {
+  if (a.D <= 64) return launch_dq<T, 64>(a, threads, shmem, st);
+  if (a.D <= 128) return launch_dq<T, 128>(a, threads, shmem, st);
+  if (a.D <= 256) return launch_dq<T, 256>(a, threads, shmem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -940,7 +1087,8 @@ extern "C" int flash_prefill_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K8.  dq [B,H,Sq,D] from q, k, v, dO, lse, delta = rowsum(dO * o).
+// K8.  dq [B,H,Sq,D] from q, k, v, dO, lse, delta = rowsum(dO * o);
+// dtype, threads and shmem as for K7.
 extern "C" int flash_prefill_bwd_dq(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -948,7 +1096,8 @@ extern "C" int flash_prefill_bwd_dq(const void* q, const void* k,
                                     void* dq, int B, int H, int n_kv, int Sq,
                                     int Skv, int D, int causal, int window,
                                     float softcap, float scale, int dtype,
-                                    int n, int es, void* stream) {
+                                    int n, int es, int threads, int shmem,
+                                    void* stream) {
   Args a{static_cast<const float*>(q), k, v, static_cast<const float*>(dout),
          static_cast<const float*>(lse), static_cast<const float*>(delta),
          static_cast<const int*>(kv_len), static_cast<const int*>(q_offset),
@@ -957,9 +1106,10 @@ extern "C" int flash_prefill_bwd_dq(const void* q, const void* k,
   if (B <= 0 || Sq <= 0) return 0;
   if (int e = check_args(a)) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return dispatch_dq<float>(a, st);
-  if (dtype == DT_I8) return dispatch_dq<int8_t>(a, st);
-  if (dtype == DT_I16) return dispatch_dq<int16_t>(a, st);
+  const size_t sh = static_cast<size_t>(shmem);
+  if (dtype == DT_F32) return dispatch_dq<float>(a, threads, sh, st);
+  if (dtype == DT_I8) return dispatch_dq<int8_t>(a, threads, sh, st);
+  if (dtype == DT_I16) return dispatch_dq<int16_t>(a, threads, sh, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

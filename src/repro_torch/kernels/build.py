@@ -58,8 +58,8 @@ SIGNATURES = {
     "flash_prefill": {
         "flash_prefill_fwd": (_P,) * 7 + (_I,) * 8 + (_F, _F) + (_I,) * 5
         + (_P,),
-        "flash_prefill_bwd_dq": (_P,) * 9 + (_I,) * 8 + (_F, _F, _I, _I, _I,
-                                                         _P),
+        "flash_prefill_bwd_dq": (_P,) * 9 + (_I,) * 8 + (_F, _F) + (_I,) * 5
+        + (_P,),
         "flash_prefill_bwd_dkv": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _I,
                                                           _P),
     },

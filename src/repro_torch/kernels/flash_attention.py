@@ -155,9 +155,7 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, seq_lens, q_offset,
 
 
 # ---- K7-K9: the contiguous prefill and its backward ---------------------
-_BQ = 32                      # query rows per head per block (K8)
-_DQ_MAX_D = 128               # K8 keeps its one-thread-per-row design
-_MAX_D = 256                  # the forward (K7, K14) and K9
+_MAX_D = 256                  # every flash kernel (K7-K9, K14)
 
 
 class Geometry(NamedTuple):
@@ -174,10 +172,11 @@ def _pad_ld(D):
 def flash_geometry(kernel: str, D: int) -> Geometry:
     """Launch geometry of the register-tiled forward (`kernel="fwd"`, K7
     and K14: 64 flat query rows a block, K/V tiles of 64 keys, 32 above
-    D = 64) or dK/dV (`"dkv"`, K9: 32 keys a block, Q/dO tiles of 64
-    rows, 32 above D = 64) at head_dim D, mirroring
-    ``csrc/flash_prefill.cu`` (whose entry points refuse any other).  The
-    forward folds the G query heads of a kv group into its row tiles and
+    D = 64), dQ (`"dq"`, K8: the same rows, K/V tiles of 32 keys, 16
+    above D = 64) or dK/dV (`"dkv"`, K9: 32 keys a block, Q/dO tiles of
+    64 rows, 32 above D = 64) at head_dim D, mirroring
+    ``csrc/flash_prefill.cu`` (whose entry points refuse any other).  K7
+    and K8 fold the G query heads of a kv group into their row tiles and
     K9 sweeps them inside the block, so G does not change it."""
     if D <= 0 or D % 4 or D > _MAX_D:
         raise ValueError(f"head_dim {D}: the flash kernels take D % 4 == 0 "
@@ -187,6 +186,10 @@ def flash_geometry(kernel: str, D: int) -> Geometry:
         bn = 64 if dmax == 64 else 32
         return Geometry(256, 4 * (64 * D + 2 * bn * _pad_ld(D)
                                   + 2 * bn * D + bn * 68))
+    if kernel == "dq":
+        bn = 32 if dmax == 64 else 16
+        return Geometry(256, 4 * (2 * 64 * D + 4 * bn * _pad_ld(D)
+                                  + bn * 68))
     if kernel == "dkv":
         br = 64 if dmax == 64 else 32
         tx = 16 if dmax <= 128 else 32
@@ -204,10 +207,9 @@ def _kv_dtype(k, v, cfg_kv):
     return dt
 
 
-def _check_prefill(fn, q, k, v, kv_len, q_offset, dq=False):
-    """Shapes the K7-K9 kernels take -> (B, H, n_kv, Sq, Skv, D).  The
-    forward and K9 take D <= 256; K8 (dq) D <= 128 and at most 32 query
-    heads per kv head (one thread per row of each head)."""
+def _check_prefill(fn, q, k, v, kv_len, q_offset):
+    """Shapes the K7-K9 kernels take -> (B, H, n_kv, Sq, Skv, D): any
+    H % n_kv == 0, D % 4 == 0 and D <= 256."""
     if q.dtype != torch.float32:
         raise TypeError(f"{fn}: q must be float32, got {q.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
@@ -218,13 +220,9 @@ def _check_prefill(fn, q, k, v, kv_len, q_offset, dq=False):
     _, n_kv, Skv, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D or n_kv == 0 or H % n_kv:
         raise ValueError(f"{fn}: needs matching B and D and H % n_kv == 0")
-    if D % 4 or D > (_DQ_MAX_D if dq else _MAX_D):
-        limit = (f"K8, the dQ pass, takes D <= {_DQ_MAX_D}" if dq
-                 else f"the kernel takes D <= {_MAX_D}")
-        raise ValueError(f"{fn}: head_dim {D}: needs D % 4 == 0; {limit}")
-    if dq and (H // n_kv) * _BQ > 1024:
-        raise ValueError(f"{fn}: K8 takes at most 32 query heads per kv "
-                         f"head")
+    if D % 4 or D > _MAX_D:
+        raise ValueError(f"{fn}: head_dim {D}: needs D % 4 == 0; the "
+                         f"kernel takes D <= {_MAX_D}")
     if kv_len.shape != (B,) or q_offset.shape != (B,):
         raise ValueError(f"{fn}: kv_len and q_offset must be [B] = [{B}]")
     return B, H, n_kv, Sq, Skv, D
@@ -319,11 +317,13 @@ def flash_prefill_bwd_dq(q, k, v, do, lse, delta, kv_len, q_offset, *,
     build.check_cuda_tensors("flash_prefill_bwd_dq", q, k, v, do, lse, delta,
                              kv_len, q_offset)
     B, H, n_kv, Sq, Skv, D = _check_prefill("flash_prefill_bwd_dq", q, k, v,
-                                            kv_len, q_offset, dq=True)
+                                            kv_len, q_offset)
     if do.shape != q.shape or lse.shape != (B, H, Sq) or \
             delta.shape != (B, H, Sq):
         raise ValueError("flash_prefill_bwd_dq: do must match q, lse and "
                          "delta [B, H, Sq]")
+    geo = flash_geometry("dq", D)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     dq = torch.empty_like(q)
     n, es = (cfg_kv.n, cfg_kv.es) if cfg_kv is not None else (0, 0)
     rc = lib.flash_prefill_bwd_dq(
@@ -331,7 +331,8 @@ def flash_prefill_bwd_dq(q, k, v, do, lse, delta, kv_len, q_offset, *,
         lse.data_ptr(), delta.data_ptr(), kv_len.data_ptr(),
         q_offset.data_ptr(), dq.data_ptr(), B, H, n_kv, Sq, Skv, D,
         int(causal), _window(window), _softcap(softcap), float(D ** -0.5),
-        build.DTYPE_CODE[dt], n, es, build.stream(q))
+        build.DTYPE_CODE[dt], n, es, geo.threads, geo.shmem,
+        build.stream(q))
     flash_prefill_bwd_dq.launches += 1
     build.check_launch(rc, "flash_prefill_bwd_dq")
     return dq

@@ -35,6 +35,12 @@ LAYOUT = (H, N_KV, D)
 WIDE_LAYOUTS = [(16, 1, 256), (4, 4, 80), (8, 1, 96)]
 # every row sees a key: offsets, kv_len < Skv, a window and a softcap
 WIDE_CASE = ("wide", 12, 30, (18, 5), (30, 17), True, 9, 4.0)
+# 40 query heads on one kv head (beyond K8's old limit of 32), D = 64:
+# G * Sq = 320 fills five 64-row flat tiles of K8 exactly; 480 cuts the
+# last tile's rows across query positions
+G40_LAYOUT = (40, 1, 64)
+G40_CASES = [("g40-full-tiles", 8, 30, (18, 5), (30, 17), True, 9, 4.0),
+             WIDE_CASE]
 
 # (id, Sq, Skv, q_offset [B], kv_len [B], causal, window, softcap)
 CASES = [
@@ -228,6 +234,15 @@ def test_flash_prefill_plain_wide_heads_match_reference(layout, kv):
     _check_backward(WIDE_CASE, kv, layout)
 
 
+@pytest.mark.parametrize("case", G40_CASES, ids=[c[0] for c in G40_CASES])
+def test_flash_prefill_bwd_plain_many_query_heads_match_reference(case):
+    """dQ (and dK, dV) from the saved lse against jax.vjp of
+    _blockwise_jnp at 40 query heads per kv head, D = 64, a layout the
+    one-thread-per-row K8 refused; G * Sq a multiple of K8's 64-row tile
+    and not one."""
+    _check_backward(case, "f32", G40_LAYOUT)
+
+
 def test_fused_prefill_autograd_runs_the_backward_kernels():
     """blocks.blockwise_attention differentiated by torch.autograd takes
     the forward with lse and the dQ / dK dV backward, and agrees with the
@@ -331,11 +346,11 @@ def test_posit_gemm_transpose_a_plain_against_numpy(a_kind):
 
 
 def test_flash_geometry_fits_every_config_head_layout():
-    """The launch geometry of the register-tiled forward (K7, K14) and of
-    dK/dV (K9) stays within an H100 block's 1,024 threads and 232,448
-    bytes of shared memory at the (G, head_dim) of every reference config;
-    the wrappers' shape check takes D <= 256 for both, and K8 (dQ) keeps
-    its D <= 128 limit with a message that names it."""
+    """The launch geometry of the register-tiled forward (K7, K14), dQ
+    (K8) and dK/dV (K9) stays within an H100 block's 1,024 threads and
+    232,448 bytes of shared memory at the (G, head_dim) of every
+    reference config, and the wrappers' shape check takes every one of
+    them for all three, D = 256 and G = 16 included."""
     from repro.configs import ARCHS, get_config
     from repro_torch.kernels import flash_attention as F
     seen = set()
@@ -343,7 +358,7 @@ def test_flash_geometry_fits_every_config_head_layout():
         cfg = get_config(arch)
         G, d = cfg.n_heads // cfg.n_kv, cfg.hd
         seen.add((G, d))
-        for kernel in ("fwd", "dkv"):
+        for kernel in ("fwd", "dq", "dkv"):
             geo = F.flash_geometry(kernel, d)
             assert geo.threads % 32 == 0 and geo.threads <= 1024, (arch, geo)
             assert 0 < geo.shmem <= 232448, (arch, kernel, geo)
@@ -352,15 +367,9 @@ def test_flash_geometry_fits_every_config_head_layout():
         kl = torch.full((1,), 8, dtype=torch.int32)
         qo = torch.zeros(1, dtype=torch.int32)
         want = (1, cfg.n_heads, cfg.n_kv, 4, 8, d)
-        for fn in ("flash_prefill_contiguous", "flash_prefill_bwd_dkv"):
+        for fn in ("flash_prefill_contiguous", "flash_prefill_bwd_dq",
+                   "flash_prefill_bwd_dkv"):
             assert F._check_prefill(fn, q, k, k, kl, qo) == want
-        if d > 128:
-            with pytest.raises(ValueError, match="K8"):
-                F._check_prefill("flash_prefill_bwd_dq", q, k, k, kl, qo,
-                                 dq=True)
-        else:
-            assert F._check_prefill("flash_prefill_bwd_dq", q, k, k, kl, qo,
-                                    dq=True) == want
     assert {(3, 64), (1, 128), (16, 256), (8, 256), (6, 128), (8, 128),
             (16, 128), (1, 80), (1, 96)} <= seen
     for d in (0, 6, 260):
