@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out FILE]
     python3 chip_smoke.py --rwkv-layers [--src DIR]
+    python3 chip_smoke.py --skinny-times [--src DIR]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -19,8 +20,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    shapes (M 9/24/129, N 100, K 1/7/33, and two split-K shapes) with f32,
    posit8 and posit16 operands in every transpose_a/transpose_b
    combination, posit out the one rounding of its own f32 result, every
-   tiled launch repeated bit-identical; the paged attention within 1e-4; each kernel also timed beside its plain version, one
-   PyTorch library call where one exists, and the card's bound;
+   tiled launch repeated bit-identical; K2's skinny form (M <= 8): the
+   decode of every posit16 and posit8 pattern bit-exact through K = 1
+   GEMMs (P16_2, P16_1, P8_2, P8_0; both orientations, M 1 and 8), M
+   1/3/8 x N 1/100/1,000 x K 1/7/33/4,096 and every served decode shape
+   of the four models at M = 8 within the f32 bound, every launch
+   repeated bit-identical, and the instructions per weight element of
+   its P16_2 main loop from the SASS; the paged attention within 1e-4;
+   each kernel also timed beside its plain version, one PyTorch library
+   call where one exists, and the card's bound (K2's skinny form also at
+   every M = 8 decode shape of rwkv6-3b and recurrentgemma-9b, summed
+   per decode step);
 2d. the training kernels against their plain versions on the card: the
    contiguous flash prefill with its log-sum-exp (K7), the backward's dQ
    (K8) and dK/dV (K9) passes at four head layouts (smollm's G = 3, D =
@@ -105,7 +115,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    last the contract line ``{"ok": true, "device": {...}}``.
 
 Float32 matmuls run in full f32 here and in the port (TF32 off).
-``--out`` also writes every number to a JSON file.
+``--out`` also writes every number to a JSON file.  ``--skinny-times``
+runs only the skinny K2's timings at every M = 8 decode shape of
+smollm-360m, rwkv6-3b and recurrentgemma-9b, and with ``--src`` another
+commit's kernel under the same harness.
 """
 from __future__ import annotations
 
@@ -420,10 +433,8 @@ class Smoke:
                 for M in (1, 8, 24, 512, 1024):
                     x = self.randn(M, K)
                     got = G.pw_gemm(x, w, cfg, transpose_b=tb)
-                    if M > G.SKINNY_M:
-                        self._repeat_same(f"pw_gemm {cfg} {name} M={M}", got,
-                                          G.pw_gemm(x, w, cfg,
-                                                    transpose_b=tb))
+                    self._repeat_same(f"pw_gemm {cfg} {name} M={M}", got,
+                                      G.pw_gemm(x, w, cfg, transpose_b=tb))
                     want = G.pw_gemm_plain(x, w, cfg, tb)
                     # f32 dot products of length K differ by at most
                     # 2*K*2^-24 * (|x| @ |w|) between any two orders
@@ -441,8 +452,9 @@ class Smoke:
         self.details["gemm_worst_err_over_bound"] = worst
 
     def _repeat_same(self, label, got, again):
-        """A tiled K2 launch repeated on the same inputs: bit-identical
-        (fixed summation order, split-K reduced in slice order)."""
+        """A K2 launch repeated on the same inputs: bit-identical (fixed
+        summation order; split-K reduced in slice order, the skinny form's
+        cluster in rank order)."""
         torch = self.torch
         if got.dtype == torch.float32:
             got, again = got.view(torch.int32), again.view(torch.int32)
@@ -531,6 +543,202 @@ class Smoke:
                                       "worst_err_over_bound": worst}
         log(f"[gemm edge] {cases} cases ({split} split-K), worst err/bound "
             f"{worst:.3e}")
+
+    # ---- phase 2: K2's skinny form (M <= 8, the decode step) -------------
+    def _posit_randn(self, shape, cfg, scale):
+        """Posit bits of N(0, scale^2) values, encoded 2^26 at a time (the
+        plain encode of a billion-entry table at once runs out of memory)."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        out = torch.empty(shape, dtype=getattr(torch, cfg.storage_dtype_name),
+                          device=self.dev)
+        flat = out.view(-1)
+        for i in range(0, flat.numel(), 1 << 26):
+            n = min(1 << 26, flat.numel() - i)
+            flat[i:i + n] = ref.encode_ref(self.randn(n, scale=scale), cfg)
+        return out
+
+    def _skinny_case(self, label, x, w, cfg, tb):
+        """One skinny pw_gemm launched twice, bit-identical, and against
+        pw_gemm_plain within the f32 dot-product bound, both taken over
+        blocks of 2^26 weights (output columns).  Returns err / bound."""
+        torch = self.torch
+        from repro_torch.kernels import posit_gemm as G
+        from repro_torch.kernels import ref
+        got = G.pw_gemm(x, w, cfg, transpose_b=tb)
+        self._repeat_same(label, got, G.pw_gemm(x, w, cfg, transpose_b=tb))
+        K = x.shape[1]
+        N = got.shape[1]
+        step = max(1, (1 << 26) // max(K, 1))
+        ratio = 0.0
+        for n0 in range(0, N, step):
+            wc = (w[n0:n0 + step] if tb else w[:, n0:n0 + step]).contiguous()
+            want = G.pw_gemm_plain(x, wc, cfg, tb)
+            wf = ref.decode_ref(wc, cfg)
+            tol = gemm_tol(torch, x, wf.T if tb else wf, K, False)
+            diff = (got[:, n0:n0 + step].double() - want.double()).abs()
+            ratio = max(ratio, float((diff / (tol + 1e-300)).max()))
+            self.err("pw_gemm", diff.max())
+            del wc, want, wf, tol, diff
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label}: error {ratio:.3e} of the bound")
+        return ratio
+
+    def check_skinny(self):
+        """K2's skinny form (pw_gemm at M <= 8): (a) the decode of every
+        posit16 and posit8 pattern, bit for bit against ref.decode_ref (NaR
+        -> NaN), through K = 1 GEMMs with x = 1 at M = 1 and 8 in both
+        orientations, for the specialised P16_2, the posit8 table (P8_2, and
+        P8_0 as another int8 format) and the runtime-format P16_1; (b) M in {1, 3, 8} x N in {1, 100,
+        1,000} x K in {1, 7, 33, 4,096}, posit8 and posit16, both
+        orientations; (c) every served decode shape of the four models at
+        M = 8, posit16 and posit8; (b) and (c) within the f32 dot-product
+        bound of pw_gemm_plain; every case launched twice, bit-identical."""
+        torch = self.torch
+        from repro_torch.core.types import P8_0, P8_2, P16_1, P16_2
+        from repro_torch.kernels import posit_gemm as G
+        from repro_torch.kernels import ref
+        for cfg in (P16_2, P16_1, P8_2, P8_0):
+            dt = getattr(torch, cfg.storage_dtype_name)
+            pats = torch.arange(-(1 << (cfg.n - 1)), 1 << (cfg.n - 1),
+                                device=self.dev, dtype=torch.int32).to(dt)
+            want = ref.decode_ref(pats, cfg)
+            fin = torch.isfinite(want)
+            for M, tb in itertools.product((1, 8), (False, True)):
+                x = torch.ones((M, 1), device=self.dev)
+                w = pats[:, None] if tb else pats[None, :]
+                label = f"pw_gemm decode {cfg} M={M} tb={tb}"
+                got = G.pw_gemm(x, w, cfg, transpose_b=tb)
+                self._repeat_same(label, got, G.pw_gemm(x, w, cfg,
+                                                        transpose_b=tb))
+                bad = int((got[:, fin].view(torch.int32)
+                           != want[fin].view(torch.int32)).sum())
+                bad += int((~torch.isnan(got[:, ~fin])).sum())
+                if bad:
+                    raise AssertionError(f"{label}: {bad} values differ "
+                                         f"from decode_ref")
+            log(f"[skinny] decode {cfg}: all {pats.numel()} patterns, M 1 "
+                f"and 8, both orientations, bit-exact (NaR -> NaN)")
+
+        worst, cases = 0.0, 0
+        for M, N, K in itertools.product((1, 3, 8), (1, 100, 1000),
+                                         (1, 7, 33, 4096)):
+            for cfg, tb in itertools.product((P8_2, P16_2), (False, True)):
+                x = self.randn(M, K)
+                w = self._posit_randn((N, K) if tb else (K, N), cfg,
+                                      K ** -0.5)
+                worst = max(worst, self._skinny_case(
+                    f"pw_gemm {cfg} M={M} N={N} K={K} tb={tb}", x, w, cfg,
+                    tb))
+                cases += 1
+        log(f"[skinny] edge shapes: {cases} cases within bound, repeats "
+            f"bit-identical (worst err/bound {worst:.3e})")
+        served = []
+        for arch in SKINNY_ARCHS:
+            for (K, N, tb), _ in served_decode_shapes(arch).items():
+                for cfg in (P16_2, P8_2):
+                    x = self.randn(DECODE_ROWS, K)
+                    w = self._posit_randn((N, K) if tb else (K, N), cfg,
+                                          K ** -0.5)
+                    r = self._skinny_case(f"pw_gemm {arch} {cfg} K={K} N={N} "
+                                          f"tb={tb}", x, w, cfg, tb)
+                    del w
+                    served.append({"arch": arch, "K": K, "N": N, "tb": tb,
+                                   "cfg": str(cfg), "err_over_bound": r})
+                    worst = max(worst, r)
+                    cases += 1
+                torch.cuda.empty_cache()
+            log(f"[skinny] {arch}: every served decode shape at M = 8, "
+                f"posit16 and posit8, within bound, repeats bit-identical")
+        self.details["skinny_checks"] = {
+            "cases": cases, "worst_err_over_bound": worst, "served": served}
+
+    def time_skinny(self, archs=None):
+        """K2's skinny form at every M = 8 decode shape of `archs` (default
+        rwkv6-3b and recurrentgemma-9b; smollm-360m's shapes are timed in
+        time_kernels), cold posit16 weights: the kernel, torch.matmul on
+        the f32 weights, the plain version and the byte bound; and each
+        model's decode step summed over its GEMMs."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import posit_gemm as G
+        from repro_torch.kernels import ref
+        cfg, M = P16_2, DECODE_ROWS
+        rows = self.details.setdefault("pw_gemm_model_shapes", [])
+        steps = self.details.setdefault("pw_gemm_model_steps", {})
+        for arch in archs or SKINNY_ARCHS[2:]:
+            step = {"gemms": 0, "ms": 0.0, "library_ms": 0.0,
+                    "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+            for (K, N, tb), count in served_decode_shapes(arch).items():
+                nbytes = 4 * M * K + 2 * K * N + 4 * M * N
+                ws = [self._posit_randn((N, K) if tb else (K, N), cfg,
+                                        K ** -0.5)
+                      for _ in range(copies_for(2 * K * N, 24))]
+                x = self.randn(M, K)
+                at = f"{arch} K={K} N={N} tb={tb}"
+                kern = time_ms(torch, lambda w: G.pw_gemm(
+                    x, w, cfg, transpose_b=tb), [(w,) for w in ws], ITERS,
+                    f"pw_gemm {at}")
+                # the plain version over blocks of output columns where the
+                # whole table's decode would not fit beside the copies
+                blk = N if K * N <= 1 << 28 else (1 << 26) // K
+
+                def plain_fn(w):
+                    return torch.cat([G.pw_gemm_plain(
+                        x, w[n0:n0 + blk] if tb else w[:, n0:n0 + blk],
+                        cfg, tb) for n0 in range(0, N, blk)], dim=1)
+
+                plain = time_ms(torch, plain_fn, [(w,) for w in ws],
+                                3 if K * N > 1 << 27 else 10,
+                                f"pw_gemm_plain {at}")
+                wfs = [torch.cat([ref.decode_ref(
+                    w[n0:n0 + blk] if tb else w[:, n0:n0 + blk], cfg)
+                    for n0 in range(0, N, blk)], dim=0 if tb else 1)
+                    for w in ws[:copies_for(4 * K * N, 12)]]
+                del ws
+                lib = time_ms(torch, lambda wf: torch.matmul(
+                    x, wf.T if tb else wf), [(wf,) for wf in wfs], ITERS,
+                    f"torch.matmul {at}")
+                del wfs
+                torch.cuda.empty_cache()
+                b, by = bound(nbytes, 2.0 * M * K * N)
+                rows.append({"arch": arch, "M": M, "K": K, "N": N,
+                             "transpose_b": tb, "per_step": count,
+                             "ms": kern, "plain_ms": plain,
+                             "library_ms": lib, "bound_ms": b,
+                             "bound_by": by})
+                log(f"[time] pw_gemm {at} M=8 (x{count} a step): "
+                    f"{kern:.4f} ms (torch.matmul on f32 {lib:.4f}, plain "
+                    f"{plain:.4f}, bound {b:.4f} by {by}: "
+                    f"{nbytes / kern / 1e6:.0f} GB/s)")
+                step["gemms"] += count
+                step["ms"] += count * kern
+                step["library_ms"] += count * lib
+                step["plain_ms"] += count * plain
+                step["bound_ms"] += count * b
+                step["bytes"] += count * nbytes
+            steps[arch] = step
+            log(f"[time] pw_gemm {arch} decode step ({step['gemms']} GEMMs "
+                f"at M=8): {step['ms']:.3f} ms, torch.matmul "
+                f"{step['library_ms']:.3f}, bound {step['bound_ms']:.3f} "
+                f"({step['ms'] / step['bound_ms']:.2f}x)")
+
+    def skinny_sass(self):
+        """Instructions per weight element in the main loop of the P16_2
+        skinny kernel at M = 8, both orientations, from its SASS."""
+        from repro_torch.kernels import build
+        lib = str(build.library_path("posit_gemm"))
+        out = {}
+        for tb in (False, True):
+            prof = sass_loop_profile(
+                lib, f"pw_skinny_kernelILi1ELb{int(tb)}ELi8E", 8)
+            out["transpose_b" if tb else "k_by_n"] = prof
+            log(f"[skinny] SASS main loop, P16_2 M=8 tb={tb}: "
+                f"{prof['fast_per_element']:.2f} instructions per element "
+                f"on the fast path ({prof['fast_counts']} over "
+                f"{prof['elements']} elements; {prof['per_element']:.2f} "
+                f"with the flagged loads' posit_decode)")
+        self.details["skinny_sass"] = out
 
     def _pool(self, cfg, P, n_kv, page, D):
         from repro_torch.kernels import ref
@@ -3228,6 +3436,104 @@ SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
 
 PREFILL_ROWS = 8 * 128      # a prefill step's rows: max_seqs x chunk
 DECODE_ROWS = 8
+# the served models whose decode shapes the skinny K2 is checked at (and,
+# from the third on, timed at beside smollm-360m's GEMM_SHAPES)
+SKINNY_ARCHS = ("smollm-360m", "olmoe-1b-7b", "rwkv6-3b",
+                "recurrentgemma-9b")
+
+
+def served_decode_shapes(arch: str) -> dict[tuple[int, int, bool], int]:
+    """{(K, N, transpose_b): GEMMs a decode step} of the pw_gemm calls of
+    `arch`'s full config: its "w" linears [K, N] and tied "table" [V, d],
+    walked as `gemm_weights` walks the params of an init whose random
+    tables are meta tensors (no memory)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import blocks, griffin, moe, rwkv6, transformer
+
+    def meta(gen, shape, scale):
+        return torch.empty(shape, device="meta")
+
+    mods = (blocks, griffin, moe, rwkv6)
+    saved = [m._normal for m in mods]
+    for m in mods:
+        m._normal = meta
+    try:
+        params = transformer.init_params(configs.get_config(arch), seed=0,
+                                         device="cpu")
+    finally:
+        for m, f in zip(mods, saved):
+            m._normal = f
+    out: dict[tuple[int, int, bool], int] = {}
+    for name, (r, c) in gemm_weights(params):
+        if name == "router":
+            continue
+        key = (c, r, True) if name == "table" else (r, c, False)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def sass_loop_profile(lib_path: str, kernel: str, mp: int) -> dict:
+    """The main loop of one skinny-kernel instance in `cuobjdump -sass`:
+    the smallest span between a backward branch and its target that holds
+    the cp.async ring's copies (LDGSTS) and FFMAs (each weight element
+    takes mp of them).  Returns its static instructions per weight
+    element, all of them and those of the fast path: the blocks a branch
+    skips that hold posit_decode (the only FLO) and no FFMA, the flagged
+    loads' fallback, are left out.  A diagnostic of the code, not a
+    timing."""
+    import re
+    from repro_torch.kernels.build import nvcc
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    for chunk in text.split("Function : ")[1:]:
+        if kernel not in chunk.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t))
+               for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;",
+                                      chunk)]
+        ops = [t.split()[0].split(".")[0] for _, t in ins]
+        target = [re.search(r"\bBRA\S*\s+(?:`\()?(0x[0-9a-f]+)", t)
+                  for _, t in ins]
+        best = None
+        for i, m in enumerate(target):
+            if not m or int(m.group(1), 16) >= ins[i][0]:
+                continue
+            lo, hi = int(m.group(1), 16), ins[i][0]
+            idx = [j for j, (a, _) in enumerate(ins) if lo <= a <= hi]
+            span = [ops[j] for j in idx]
+            if "LDGSTS" not in span or "FFMA" not in span:
+                continue
+            key = -len(span)
+            if best is None or key > best[0]:
+                best = (key, idx)
+        if best is None:
+            raise RuntimeError(f"{kernel}: no loop in its SASS")
+        idx = best[1]
+        cold = set()
+        for j in idx:
+            m = target[j]
+            if m and int(m.group(1), 16) > ins[j][0]:
+                skip = [k for k in idx
+                        if ins[j][0] < ins[k][0] < int(m.group(1), 16)]
+                kinds_in = {ops[k] for k in skip}
+                if "FLO" in kinds_in and "FFMA" not in kinds_in:
+                    cold.update(skip)
+        elements = sum(ops[j] == "FFMA" for j in idx) // mp
+        hot = [ops[j] for j in idx if j not in cold]
+        kinds = {"ffma": ("FFMA",), "shared": ("LDS", "STS", "LDGSTS"),
+                 "global": ("LDG", "STG"),
+                 "branch": ("BRA", "BSSY", "BSYNC", "EXIT", "WARPSYNC")}
+        counts = {k: sum(hot.count(o) for o in v) for k, v in kinds.items()}
+        counts["integer"] = len(hot) - sum(counts.values())
+        n = max(elements, 1)
+        return {"instructions": len(idx), "elements": elements,
+                "per_element": len(idx) / n, "fast_path": len(hot),
+                "fast_per_element": len(hot) / n,
+                "fast_integer_per_element": counts["integer"] / n,
+                "fast_counts": counts}
+    raise RuntimeError(f"{kernel} not in the SASS of {lib_path}")
 
 
 def gemm_weights(params) -> list[tuple[str, tuple[int, int]]]:
@@ -3406,6 +3712,9 @@ def main() -> int:
     ap.add_argument("--rwkv-layers", action="store_true", help="run only "
                     "the per-layer rwkv6-3b card-vs-CPU check and print its "
                     "numbers")
+    ap.add_argument("--skinny-times", action="store_true", help="run only "
+                    "the skinny form's timings (with --src, another "
+                    "commit's kernel under the same harness)")
     ap.add_argument("--src", default=None, help="the package root to run "
                     "(default: src/ beside this script; another commit's "
                     "unpacked src/ runs its kernels under this script's "
@@ -3436,12 +3745,22 @@ def main() -> int:
         s.check_rwkv_layers("rwkv6-3b", 2)
         log(json.dumps(s.details["rwkv6-3b_layers"]))
         return 0
+    if args.skinny_times:
+        s.time_skinny(SKINNY_ARCHS[:1] + SKINNY_ARCHS[2:])
+        log(json.dumps({k: s.details[k] for k in ("pw_gemm_model_steps",
+                                                  "pw_gemm_model_shapes")}))
+        return 0
     regs = ptxas_report(build, "posit_gemm", ("gemm_mma_kernel",
-                                              "splitk_reduce_kernel"))
+                                              "splitk_reduce_kernel",
+                                              "pw_skinny_kernel"))
     s.details["posit_gemm_ptxas"] = regs
-    log(f"[build] posit_gemm: {len(regs)} instances of the tiled kernel "
-        f"and its split-K reduce, registers "
-        f"{sorted(r['registers'] for r in regs)}, no spills")
+    skinny = sorted(r["registers"] for r in regs
+                    if r["kernel"] == "pw_skinny_kernel")
+    tiled = sorted(r["registers"] for r in regs
+                   if r["kernel"] != "pw_skinny_kernel")
+    log(f"[build] posit_gemm: {len(tiled)} instances of the tiled kernel "
+        f"and its split-K reduce, registers {tiled}; {len(skinny)} of the "
+        f"skinny kernel, registers {skinny}; no spills")
     regs = ptxas_report(build, "flash_prefill", FLASH_KERNEL_SYMBOLS)
     s.details["flash_prefill_ptxas"] = regs
     log("[build] flash_prefill: " + ", ".join(
@@ -3452,10 +3771,13 @@ def main() -> int:
     s.check_append()
     s.check_gemm()
     s.check_gemm_edges()
+    s.check_skinny()
+    s.skinny_sass()
     s.check_attention()
     log(f"[phase] kernel checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     s.time_kernels()
+    s.time_skinny()
     log(f"[phase] kernel timings {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     s.check_training_kernels()

@@ -5,9 +5,13 @@ pallas_call at :139): posit or f32 operands, decoded to exact f32 as the
 tiles are staged, an f32 accumulator (the quire analogue), and either f32
 out or one RNE rounding to posit bits (`out_posit`: the quire's single
 rounding).  `pw_gemm` is its f32-activation form (``::pw_gemm``, :158), the
-serving path's linear and unembedding.  A decode step (M <= 8 rows) runs a
-skinny kernel bound by reading the weights.  Every other call runs the
-tiled tensor-core kernel: each decoded operand element is split exactly
+serving path's linear and unembedding.  A decode step (M <= 8 rows) runs the
+skinny kernel, bound by reading the weights: 16-byte weight loads, a decode
+specialised per format (a shared table for posit8, a table and one rotation
+for posit16 es 2), x staged in shared memory, and a k-split over a
+thread-block cluster where column tiles alone leave SMs idle; `skinny_plan`
+mirrors its launch plan.  Every other call runs the tiled tensor-core
+kernel: each decoded operand element is split exactly
 into bf16 pieces (two for a posit with n <= 16, three for an f32) and
 their products, exact in bf16 x bf16 -> f32 `mma.sync`, are summed in f32;
 f32 x f32 keeps 6 of the 9 piece products, which moves a result by at
@@ -27,6 +31,7 @@ transpose_a, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -43,8 +48,22 @@ MAX_SPLITS = 8
 MIN_SLICE_TILES = 4            # k-tiles a split-K slice keeps
 # (BM, BN, warps along m, warps along n), largest first
 TILES = ((128, 128, 2, 4), (64, 64, 2, 2))
-SKINNY_M = 8                   # pw_gemm at M <= 8 runs the skinny kernels
+SKINNY_M = 8                   # pw_gemm at M <= 8 runs the skinny kernel
 PIECES = {"f32": 3, "posit": 2}   # bf16 pieces per operand element
+# The skinny plan's constants (csrc/posit_gemm.cu, kSk*)
+SK_THREADS = 256
+SK_MAX_CLUSTER = 8             # the portable thread-block cluster size
+SK_XS_BYTES = 32 * 1024        # x staged per k-chunk, at most
+SK_TAB_BYTES = 256 * 4         # the static decode table
+SK_SMEM_SM = 233_472           # shared bytes of an SM
+SK_SMEM_BLOCK = 232_448        # ... that one block may use
+SK_RESERVE = 1024              # the system's share per block
+SK_TILE_COST = 8192            # a tile's fixed cost, in elements streamed
+SK_CLUSTER_COST = 8192         # ... more with a cluster's syncs
+SK_STEP_LOADS = {False: 2, True: 4}   # 16-byte loads of a lane's step
+SK_STAGES = {False: 4, True: 3}       # steps in flight (the cp.async ring)
+SK_TN = {False: (32, 16, 8, 4, 2),    # w [K, N]: lanes along n
+         True: (64, 32, 16, 8)}       # w [N, K]: column groups of 4
 
 
 class GemmPlan(NamedTuple):
@@ -96,6 +115,75 @@ def gemm_plan(M: int, N: int, K: int, kinds=("f32", "f32"),
     return GemmPlan(bm, bn, BK, STAGES, splits, per, wm * wn * 32, smem)
 
 
+class SkinnyPlan(NamedTuple):
+    bm: int                    # rows padded in shared memory: 4 or 8
+    bn: int                    # columns a tile
+    splits: int                # k-split over a cluster of this many blocks
+    threads: int
+    smem: int                  # dynamic shared bytes
+    tn: int                    # lanes along n (column groups with transpose_b)
+    tk: int                    # lanes along k
+    kpg: int                   # k a group (one 16-byte load along k, or 1)
+    per: int                   # k-groups a rank
+    chunk: int                 # k-groups of one staged x chunk
+    nch: int                   # chunks
+    tiles: int
+    grid: int                  # blocks: splits x clusters, persistent
+
+
+@functools.lru_cache(maxsize=None)
+def skinny_plan(M: int, N: int, K: int, transpose_b: bool = False,
+                elem_bytes: int = 2) -> SkinnyPlan:
+    """Launch plan of the skinny kernel (M <= 8) for x [M, K] times posit
+    weights of `elem_bytes` bytes, as ``csrc/posit_gemm.cu::
+    make_skinny_plan`` computes it.  For each column tile (tn, widest first)
+    and cluster size cs (1..8, no rank without k): the ranks take cs equal
+    slices of the k-groups, x is staged in chunks of at most 32 KB, and
+    blocks loop over the tiles, as many as the SMs hold at once (by shared
+    memory, and by registers: see `reg_bps`); a cluster takes one tile.
+    Cost: rounds of tiles x (the slice x the tile width + each chunk's
+    fixed cost: its first loads' latency and its sums, and a cluster's two
+    syncs); the cheapest plan wins, the first of equals."""
+    mp = 4 if M <= 4 else 8
+    ve = 16 // elem_bytes
+    cpt, kpg = (4, ve) if transpose_b else (ve, 1)
+    ng = _cdiv(max(K, 1), kpg)
+    xs_groups = SK_XS_BYTES // (4 * kpg * mp)
+    # by registers: one block an SM past 64 accumulators a lane, and for
+    # [N, K] weights at 8 rows (they spilled at 128 registers)
+    reg_bps = 1 if mp * cpt > 64 or (transpose_b and mp == 8) else 2
+    best, best_cost = None, -1
+    for tn in SK_TN[transpose_b]:
+        tk, bn = SK_THREADS // tn, tn * cpt
+        tiles = _cdiv(N, bn)
+        for cs in range(1, SK_MAX_CLUSTER + 1):
+            per = _cdiv(ng, cs)
+            if _cdiv(ng, per) != cs:
+                continue
+            chunk = min(per, xs_groups)
+            red = 4 * (tk // 2) * (mp * bn + 4)
+            cred = 4 * cs * mp * bn if cs > 1 else 0
+            ring = 16 * SK_STAGES[transpose_b] * SK_STEP_LOADS[
+                transpose_b] * SK_THREADS
+            smem = 4 * chunk * kpg * mp + max(red, cred) + ring
+            if smem + SK_TAB_BYTES > SK_SMEM_BLOCK:
+                continue
+            bps = min(reg_bps, SK_SMEM_SM // (smem + SK_TAB_BYTES
+                                              + SK_RESERVE))
+            groups = min(tiles, max(1, SMS * bps // cs))
+            if cs > 1 and groups < tiles:
+                continue                 # a cluster takes one tile
+            nch = _cdiv(per, chunk)
+            cost = _cdiv(tiles, groups) * (
+                per * kpg * bn + nch * (SK_TILE_COST + (SK_CLUSTER_COST
+                                                        if cs > 1 else 0)))
+            if best is None or cost < best_cost:
+                best_cost = cost
+                best = SkinnyPlan(mp, bn, cs, SK_THREADS, smem, tn, tk, kpg,
+                                  per, chunk, nch, tiles, groups * cs)
+    return best
+
+
 def _plan_args(plan: GemmPlan, M: int, N: int, device):
     """-> (the split-K workspace or None, the C entry's workspace pointer
     and plan ints)."""
@@ -143,16 +231,19 @@ def pw_gemm(x: torch.Tensor, w_bits: torch.Tensor, cfg: PositConfig, *,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    plan = (gemm_plan(M, N, K, ("f32", "posit"), False, transpose_b)
-            if M > SKINNY_M else None)
-    ws, args = (_plan_args(plan, M, N, x.device) if plan
-                else (None, (None, 0, 0, 0, 0, 0)))
+    if M <= SKINNY_M:
+        plan = skinny_plan(M, N, K, transpose_b, w_bits.element_size())
+        ws, args = None, (None, plan.bm, plan.bn, plan.splits, plan.threads,
+                          plan.smem)
+    else:
+        plan = gemm_plan(M, N, K, ("f32", "posit"), False, transpose_b)
+        ws, args = _plan_args(plan, M, N, x.device)
     rc = lib.posit_pw_gemm(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(),
                            M, N, K, int(transpose_b),
                            build.DTYPE_CODE[w_bits.dtype], cfg.n, cfg.es,
                            *args, build.stream(x))
     pw_gemm.launches += 1
-    pw_gemm.reduce_launches += int(plan is not None and plan.splits > 1)
+    pw_gemm.reduce_launches += int(ws is not None)
     build.check_launch(rc, "posit_pw_gemm")
     return out
 
