@@ -4,14 +4,16 @@
     python3 chip_smoke.py [--out FILE]
     python3 chip_smoke.py --rwkv-layers [--src DIR]
     python3 chip_smoke.py --skinny-times [--src DIR]
+    python3 chip_smoke.py --grouped-times [--src DIR]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit, then the build of every CUDA kernel
    from ``src/repro_torch/csrc`` (one nvcc per source, all in parallel),
    and ptxas's registers of every instance of the tiled posit GEMM and its
-   split-K reduce and of the flash kernels (K7, K8, K9), none of which
-   may spill;
+   split-K reduce, of the grouped GEMM's decode and tiled forms and its dW
+   (K10, K11) and of the flash kernels (K7, K8, K9), none of which may
+   spill;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes of full-width smollm-360m, for posit16, posit8 and float pages:
    the codec bit-exact (exhaustive decode, encode over an f32 sweep), the
@@ -72,15 +74,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    uninterrupted ones;
 6. the MoE path, olmoe-1b-7b at full width: (a) the grouped posit GEMM
    (K10; posit16, posit8 and f32 experts, with and without transpose_b)
-   and its dW (K11) against their plain versions within the f32
-   dot-product bound, at a decode step's, a prefill step's and a
-   training step's row counts and at edge layouts (empty groups, one
-   group holding every row, boundaries inside a tile, rows past
-   offsets[E], which must be exactly 0); (b) their timings beside the
-   plain versions, the bound and one torch.matmul per non-empty group;
+   over every posit16/posit8 pattern bit-exact at K = 1 in its decode
+   and tiled forms, then K10 and its dW (K11) against their plain
+   versions within the f32 dot-product bound (plus, for f32 x f32, the
+   2^-22 (|a| @ |b|) the tiled form declares), at a decode step's, a
+   prefill step's and a training step's row counts and at edge layouts
+   of 500 rows (the decode form) and 2,000 (the tiled form): empty
+   groups, one group holding every row, boundaries inside a tile, rows
+   past offsets[E], which must be exactly 0; every launch repeated
+   bit-identical and in the form its plan names (the decode form for
+   posit experts below 16 rows a group); (b) their timings beside the
+   plain versions, the bound (bytes at decode, else the tensor cores'
+   bf16 products, with the FFMA bound beside it) and one torch.matmul
+   per non-empty group;
    (c) serving all 16 layers from posit16 experts, 16 requests through
    PagedServingEngine, counters zeroed just before the PTQ and read just
-   after the drain, then a profiled decode window; (d) logits at depth 2
+   after the drain (every decode step's grouped GEMMs in the decode form,
+   training's in the tiled form), then a profiled decode window; (d) logits at depth 2
    on the card against the CPU, and (e) one depth-2 training step against
    the CPU, both under the route-flip rule (a token whose top-8 set
    differs between card and CPU must have a CPU logit margin within the
@@ -118,7 +128,9 @@ Float32 matmuls run in full f32 here and in the port (TF32 off).
 ``--out`` also writes every number to a JSON file.  ``--skinny-times``
 runs only the skinny K2's timings at every M = 8 decode shape of
 smollm-360m, rwkv6-3b and recurrentgemma-9b, and with ``--src`` another
-commit's kernel under the same harness.
+commit's kernel under the same harness; ``--grouped-times`` does the same
+for K10 and K11 at olmoe-1b-7b's decode, prefill and training shapes
+(without the plain versions).
 """
 from __future__ import annotations
 
@@ -135,10 +147,11 @@ import time
 
 # H100 SXM, published (dense): HBM3 bandwidth, the f32 rate outside the
 # tensor cores and the bf16 tensor-core rate.  Every kernel but the tiled
-# posit GEMM (K2 at M > 8, and every general-form call) uses FFMA, so f32
-# is their operation type; the tiled GEMM runs bf16 mma.sync on exact bf16
-# pieces of its operands (csrc/posit_gemm.cu), so its operations are the
-# bf16 products: 4 per f32 product for posit x posit, 6 otherwise.
+# posit GEMMs (K2 at M > 8 and every general-form call; K10 but its decode
+# form; K11) uses FFMA, so f32 is their operation type; the tiled GEMMs run
+# bf16 mma.sync on exact bf16 pieces of their operands (csrc/posit_gemm.cu,
+# csrc/grouped_gemm.cu), so their operations are the bf16 products: 4 per
+# f32 product for posit x posit, 6 otherwise.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -1797,6 +1810,7 @@ class Smoke:
         import numpy as np
         from repro_torch import configs
         from repro_torch.core.types import P16_2
+        from repro_torch.kernels import grouped_gemm as GG
         from repro_torch.kernels import ops
         from repro_torch.models.transformer import init_params
         from repro_torch.quant.policy import PositPolicy
@@ -1831,6 +1845,7 @@ class Smoke:
         drain_s = time.perf_counter() - t0
         launches = ops.launch_counts()
         plain = ops.plain_counts()
+        streamed = GG.posit_grouped_gemm.stream_launches
         # ---- end of the counted run ----
 
         stats = eng.stats()
@@ -1849,6 +1864,17 @@ class Smoke:
                                 if k not in expect):
             raise AssertionError(f"serving {arch}: launch counts {launches} "
                                  f"differ from the path's structure {expect}")
+        if cfg.moe is not None:
+            # every decode step (at most 8 x top-k rows) streams its three
+            # grouped GEMMs a layer; prefill steps stream below 128 tokens
+            lo, hi = 3 * cfg.n_layers * dec, 3 * cfg.n_layers * (dec + pre)
+            if not lo <= streamed <= hi:
+                raise AssertionError(f"serving {arch}: {streamed} grouped "
+                                     f"GEMMs in the decode form, outside "
+                                     f"[{lo}, {hi}]")
+            log(f"[serve] {arch}: {streamed} of {launches['grouped_gemm']} "
+                f"grouped GEMMs in the decode form (every decode step's "
+                f"{lo}; the rest are prefill steps')")
 
         def nbytes(tree):
             if isinstance(tree, dict):
@@ -2141,6 +2167,7 @@ class Smoke:
         from repro_torch import configs
         from repro_torch.core.types import P16_2
         from repro_torch.data.pipeline import DataConfig
+        from repro_torch.kernels import grouped_gemm as GG
         from repro_torch.optim.adamw import OptConfig
         from repro_torch.quant.policy import PositPolicy
         steps = TRAIN_STEPS
@@ -2157,6 +2184,10 @@ class Smoke:
             data = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
             params, hist, launches, plain, peak, wall = self._train_leg(
                 cfg, steps, data, opt)
+            if cfg.moe is not None and \
+                    GG.posit_grouped_gemm.stream_launches:
+                raise AssertionError(f"{arch} {name}: training ran grouped "
+                                     f"GEMMs in the decode form")
             losses = [h["loss"] for h in hist]
             aux = [h["aux"] for h in hist]
             if not all(math.isfinite(x) for x in losses + aux):
@@ -2318,11 +2349,30 @@ class Smoke:
         return torch.tensor([0] + list(itertools.accumulate(sizes)),
                             dtype=torch.int32, device=self.dev)
 
+    def _grouped_form(self, label, S, N, K, E, elem_bytes, tb, before):
+        """The wrapper's decode-form count moved by the launches since
+        `before` exactly as the plan's form says: posit weights below 16
+        rows a group (every decode step) stream, the rest run the tiled
+        form."""
+        from repro_torch.kernels import grouped_gemm as GG
+        plan = GG.grouped_plan(S, N, K, E, elem_bytes, tb)
+        want = "stream" if elem_bytes != 4 and S < GG.STREAM_ROWS * E \
+            else "mma"
+        moved = GG.posit_grouped_gemm.stream_launches - before
+        if plan.form != want or moved != (2 if want == "stream" else 0):
+            raise AssertionError(f"grouped_gemm {label}: form {plan.form} "
+                                 f"(want {want}), {moved} decode-form "
+                                 f"launches of 2")
+        return plan.form
+
     def _check_grouped(self, label, S, K, N, off, cfg, transpose_b):
         """K10 against its plain version: w stored [E, K, N] (posit of cfg,
         or f32), x [S, K] (or [S, N] with transpose_b, the dX form), within
         the f32 dot-product bound 2 Kc 2^-24 (|x| |w_g|) over the
-        contraction Kc; rows outside every group exactly 0 on both sides."""
+        contraction Kc, plus for f32 weights the declared 2^-22 (|x| |w_g|)
+        of the tiled form's three dropped piece products; rows outside
+        every group exactly 0 on both sides; launched twice, bit-identical,
+        in the form its plan names."""
         from repro_torch.kernels import grouped_gemm as GG
         from repro_torch.kernels import ref
         E = off.shape[0] - 1
@@ -2330,11 +2380,18 @@ class Smoke:
         if cfg is not None:
             w = ref.encode_ref(w, cfg)
         kc = N if transpose_b else K
+        nout = K if transpose_b else N
         x = self.randn(S, kc)
+        before = GG.posit_grouped_gemm.stream_launches
         got = GG.posit_grouped_gemm(x, w, off, cfg, transpose_b=transpose_b)
+        self._repeat_same(f"grouped_gemm {label}", got, GG.posit_grouped_gemm(
+            x, w, off, cfg, transpose_b=transpose_b))
+        form = self._grouped_form(label, S, nout, kc, E, w.element_size(),
+                                  transpose_b, before)
         want = GG.posit_grouped_gemm_plain(x, w, off, cfg, transpose_b)
-        tol = 2 * kc * 2.0 ** -24 * ref.grouped_matmul_ref(
-            x.abs(), ref.values(w, cfg).abs(), off, transpose_b=transpose_b)
+        s = ref.grouped_matmul_ref(x.abs(), ref.values(w, cfg).abs(), off,
+                                   transpose_b=transpose_b)
+        tol = (2 * kc * 2.0 ** -24 + (2.0 ** -22 if cfg is None else 0.0)) * s
         _, inb = ref.grouped_row_ids(off, S)
         out_rows = int((~inb).sum())
         if out_rows and not (bool((got[~inb] == 0).all())
@@ -2342,27 +2399,71 @@ class Smoke:
             raise AssertionError(f"grouped_gemm {label}: rows outside every "
                                  f"group are not 0")
         return self._within("grouped_gemm", f"{label} {cfg or 'f32'} "
-                            f"transpose_b={transpose_b} ({out_rows} rows "
-                            f"outside groups)", got, want, tol)
+                            f"transpose_b={transpose_b} {form} form "
+                            f"({out_rows} rows outside groups, repeat "
+                            f"bit-identical)", got, want, tol)
 
     def _check_grouped_dw(self, label, S, K, N, off):
         """K11 against its plain version within 2 n_e 2^-24 (|x|^T |g|) per
-        group of n_e rows; an empty group exactly 0 on both sides."""
+        group of n_e rows plus the declared 2^-22 (|x|^T |g|) of the f32 x
+        f32 pieces; an empty group exactly 0 on both sides; launched twice,
+        bit-identical."""
         from repro_torch.kernels import grouped_gemm as GG
         from repro_torch.kernels import ref
         x, g = self.randn(S, K), self.randn(S, N)
         got = GG.posit_grouped_gemm_dw(x, g, off)
+        self._repeat_same(f"grouped_gemm_dw {label}", got,
+                          GG.posit_grouped_gemm_dw(x, g, off))
         want = GG.posit_grouped_gemm_dw_plain(x, g, off)
         n_e = (off[1:] - off[:-1]).clamp_min(0).float()
-        tol = 2 * n_e[:, None, None] * 2.0 ** -24 * ref.grouped_matmul_dw_ref(
-            x.abs(), g.abs(), off)
+        tol = (2 * n_e[:, None, None] * 2.0 ** -24 + 2.0 ** -22) * \
+            ref.grouped_matmul_dw_ref(x.abs(), g.abs(), off)
         empty = n_e == 0
         if bool(empty.any()) and not (bool((got[empty] == 0).all())
                                       and bool((want[empty] == 0).all())):
             raise AssertionError(f"grouped_gemm_dw {label}: empty groups "
                                  f"are not 0")
         return self._within("grouped_gemm_dw", f"{label} ({int(empty.sum())}"
-                            f" empty groups)", got, want, tol)
+                            f" empty groups, repeat bit-identical)", got,
+                            want, tol)
+
+    def check_grouped_decode(self):
+        """Every posit16 and posit8 pattern (P16_2, P16_1, P8_2, P8_0)
+        through K = 1 grouped GEMMs with x = 1, bit for bit against
+        ref.decode_ref (NaR -> NaN): in the decode form (one row of one
+        group, and one group of 8 rows: the 4- and 8-wide passes) and the
+        tiled form (16 rows), both orientations."""
+        torch = self.torch
+        from repro_torch.core.types import P8_0, P8_2, P16_1, P16_2
+        from repro_torch.kernels import grouped_gemm as GG
+        from repro_torch.kernels import ref
+        for cfg in (P16_2, P16_1, P8_2, P8_0):
+            dt = getattr(torch, cfg.storage_dtype_name)
+            pats = torch.arange(-(1 << (cfg.n - 1)), 1 << (cfg.n - 1),
+                                device=self.dev, dtype=torch.int32).to(dt)
+            want = ref.decode_ref(pats, cfg)
+            fin = torch.isfinite(want)
+            for S, tb in itertools.product((1, 8, 16), (False, True)):
+                x = torch.ones((S, 1), device=self.dev)
+                w = pats[None, None, :] if not tb else pats[None, :, None]
+                off = self._offsets_of([S])
+                before = GG.posit_grouped_gemm.stream_launches
+                label = f"decode {cfg} S={S} tb={tb}"
+                got = GG.posit_grouped_gemm(x, w, off, cfg, transpose_b=tb)
+                self._repeat_same(f"grouped_gemm {label}", got,
+                                  GG.posit_grouped_gemm(x, w, off, cfg,
+                                                        transpose_b=tb))
+                self._grouped_form(label, S, pats.numel(), 1, 1,
+                                   w.element_size(), tb, before)
+                bad = int((got[:, fin].view(torch.int32)
+                           != want[fin].view(torch.int32)).sum())
+                bad += int((~torch.isnan(got[:, ~fin])).sum())
+                if bad:
+                    raise AssertionError(f"grouped_gemm {label}: {bad} "
+                                         f"values differ from decode_ref")
+            log(f"[grouped_gemm] decode {cfg}: all {pats.numel()} patterns, "
+                f"decode form (1 and 8 rows) and tiled form (16 rows), both "
+                f"orientations, bit-exact (NaR -> NaN)")
 
     def check_moe_kernels(self):
         """(a) K10 with posit16, posit8 and f32 experts, with and without
@@ -2370,9 +2471,12 @@ class Smoke:
         1024 up/gate and 1024 x 2048 down tables) and the path's row counts
         (a decode step's 8 x 8 pairs, a prefill step's 1,024 x 8, a training
         step's 4,096 x 8, randomly routed); then the edge layouts at 500
-        rows: many empty groups, one group holding every row, boundaries
-        inside a 64-row chunk, and rows past offsets[E]."""
+        rows (the decode form for posit experts) and at 2,000 (the tiled
+        form): many empty groups, one group holding every row, boundaries
+        inside a 64-row tile, and rows past offsets[E]; every launch
+        repeated bit-identical and in its plan's form."""
         from repro_torch.core.types import P8_2, P16_2
+        self.check_grouped_decode()
         worst = 0.0
         for tag, T in (("decode", 8), ("prefill", 1024), ("training", 4096)):
             off = self._moe_offsets(T)
@@ -2385,33 +2489,45 @@ class Smoke:
                 if tag != "decode":
                     worst = max(worst, self._check_grouped_dw(
                         f"{tag} S={S} {name}", S, K, N, off))
-        E, S = MOE_E, 500
+        E = MOE_E
         chunks = [1, 63, 65, 3, 127, 0, 70, 2, 33, 64, 1]
-        edges = {
+        layouts = {500: {
             "many empty groups": [0] * 10 + [7] + [0] * 30 + [200, 0, 90] +
                                  [0] * 19 + [203],
-            "one group holds every row": [0] * 17 + [S] + [0] * (E - 18),
+            "one group holds every row": [0] * 17 + [500] + [0] * (E - 18),
             "boundaries inside 64-row chunks":
                 chunks + [0] * (E - len(chunks)),
             "rows past offsets[E]": [3] * (E - 1) + [0],
-        }
-        for label, sizes in edges.items():
-            off = self._offsets_of(sizes)
-            for cfg in (P16_2, None):
-                for tb in (False, True):
-                    worst = max(worst, self._check_grouped(
-                        f"edge: {label}", S, 2048, 1024, off, cfg, tb))
-            worst = max(worst, self._check_grouped_dw(
-                f"edge: {label}", S, 2048, 1024, off))
+        }, 2000: {
+            "many empty groups": [0] * 10 + [7] + [0] * 30 + [800, 0, 360] +
+                                 [0] * 19 + [833],
+            "one group holds every row": [0] * 17 + [2000] + [0] * (E - 18),
+            "boundaries inside 64-row tiles":
+                chunks + [0] * (E - len(chunks) - 1) + [1000],
+            "rows past offsets[E]": [24] * (E - 1) + [0],
+        }}
+        _, K, N = MOE_SHAPES[0]                 # the up/gate table
+        for S, edges in layouts.items():
+            for label, sizes in edges.items():
+                off = self._offsets_of(sizes)
+                for cfg in (P16_2, None):
+                    for tb in (False, True):
+                        worst = max(worst, self._check_grouped(
+                            f"edge S={S}: {label}", S, K, N, off, cfg, tb))
+                worst = max(worst, self._check_grouped_dw(
+                    f"edge S={S}: {label}", S, K, N, off))
         self.details["moe_kernels_worst_err_over_bound"] = worst
 
-    def time_moe_kernels(self):
-        """(b) K10 and K11 at the path's shapes, beside the plain versions,
-        the bound and a library yardstick: no single PyTorch call computes
-        an f32 grouped product, so the yardstick is one torch.matmul per
-        non-empty group on the decoded f32 tables (E calls), summed.  The
-        bound at decode is bytes (the active experts' posit16 tables, x and
-        out); elsewhere 2 S K N over f32 FFMA."""
+    def time_moe_kernels(self, plain=True):
+        """(b) K10 and K11 at the path's shapes, beside the plain versions
+        (unless `plain` is False), the bound and a library yardstick: no
+        single PyTorch call computes an f32 grouped product, so the
+        yardstick is one torch.matmul per non-empty group on the decoded
+        f32 tables (E calls), summed.  The bound at decode is bytes (the
+        active experts' posit16 tables, x and out); elsewhere the tiled
+        form's bf16 products (6 per f32 product: f32 x posit16, and f32 x
+        f32 with three dropped) over 989 TFLOP/s, with the FFMA bound of
+        2 S K N beside it."""
         torch = self.torch
         from repro_torch.core.types import P16_2
         from repro_torch.kernels import grouped_gemm as GG
@@ -2439,77 +2555,107 @@ class Smoke:
                     kc, nout = (N, K) if tb else (K, N)
                     x = self.randn(S, kc)
                     at = f"{tag} S={S} {name} {form}"
+                    plain_ms = None
                     if tb is None:                     # K11: dW of the table
                         g = self.randn(S, N)
                         xs = [(x, g), (self.randn(S, K), self.randn(S, N))]
                         kern = time_ms(torch, lambda a, b: GG.
                                        posit_grouped_gemm_dw(a, b, off), xs,
                                        20, f"grouped_gemm_dw {at}")
-                        plain = time_ms(torch, lambda a, b: GG.
-                                        posit_grouped_gemm_dw_plain(a, b, off),
-                                        xs, 3, f"grouped_gemm_dw_plain {at}")
+                        if plain:
+                            plain_ms = time_ms(
+                                torch, lambda a, b: GG.
+                                posit_grouped_gemm_dw_plain(a, b, off), xs,
+                                3, f"grouped_gemm_dw_plain {at}")
                         lib = time_ms(torch, lambda a, b: [
                             torch.matmul(a[s:t].T, b[s:t])
                             for _, s, t in bounds], xs, 5,
                             f"torch.matmul x E {at}")
                         nbytes = 4 * (S * K + S * N + E * K * N)
+                        # an older tree (--src) has FFMA forms, no plan
+                        kform = ("mma" if hasattr(GG, "grouped_plan")
+                                 else "ffma")
                     else:
                         sets = [(w, wf) for w, wf in zip(ws, wfs)]
                         kern = time_ms(torch, lambda w, wf: GG.
                                        posit_grouped_gemm(x, w, off, cfg,
                                                           transpose_b=tb),
                                        sets, 20, f"grouped_gemm {at}")
-                        plain = time_ms(torch, lambda w, wf: GG.
-                                        posit_grouped_gemm_plain(x, w, off,
-                                                                 cfg, tb),
-                                        sets, 3, f"grouped_gemm_plain {at}")
+                        if plain:
+                            plain_ms = time_ms(
+                                torch, lambda w, wf: GG.
+                                posit_grouped_gemm_plain(x, w, off, cfg, tb),
+                                sets, 3, f"grouped_gemm_plain {at}")
                         lib = time_ms(torch, lambda w, wf: [
                             torch.matmul(x[s:t], wf[e].T if tb else wf[e])
                             for e, s, t in bounds], sets, 5,
                             f"torch.matmul x E {at}")
                         nbytes = 4 * S * kc + active * K * N * esize \
                             + 4 * S * nout
+                        kform = (GG.grouped_plan(S, nout, kc, E, esize,
+                                                 tb).form
+                                 if hasattr(GG, "grouped_plan") else "ffma")
                     flops = 2.0 * S * K * N
-                    b, by = bound(nbytes, flops)
+                    if tag == "decode":
+                        b, by = bound(nbytes, flops)
+                        ffma = b
+                    else:
+                        b, by, ffma = tc_bound(nbytes, flops, 6)
                     rows.append({"use": tag, "table": name, "form": form,
-                                 "kernel": kern_name, "S": S, "K": K, "N": N,
+                                 "kernel": kern_name, "kernel_form": kform,
+                                 "S": S, "K": K, "N": N,
                                  "active_experts": active,
                                  "weights": str(cfg or "f32"), "ms": kern,
-                                 "plain_ms": plain, "library_ms": lib,
+                                 "plain_ms": plain_ms, "library_ms": lib,
                                  "bound_ms": b, "bound_by": by,
+                                 "ffma_bound_ms": ffma,
                                  "tflop_per_s": flops / kern / 1e9})
+                    pl = f"{plain_ms:.4f}" if plain_ms is not None \
+                        else "not timed"
                     log(f"[time] {kern_name} {at} ({cfg or 'f32'}, {active} "
-                        f"active experts): {kern:.4f} ms ({flops / kern / 1e9:.1f}"
-                        f" TFLOP/s; plain {plain:.4f}, torch.matmul x "
-                        f"{active} {lib:.4f}, bound {b:.4f} by {by})")
+                        f"active experts, {kform} form): {kern:.4f} ms "
+                        f"({flops / kern / 1e9:.1f} TFLOP/s; plain {pl}, "
+                        f"torch.matmul x {active} {lib:.4f}, bound {b:.4f} "
+                        f"by {by}, FFMA bound {ffma:.4f})")
                 del ws, wfs
         self.details["moe_kernel_shapes"] = rows
 
         def total(pred, per):
             """Sum of `per[table] x row` over the rows matching pred."""
-            acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                   "bound_ms": 0.0}
+            acc = {"ms": 0.0, "plain_ms": 0.0 if plain else None,
+                   "library_ms": 0.0, "bound_ms": 0.0, "ffma_bound_ms": 0.0}
             for r in rows:
                 if pred(r):
                     for key in acc:
-                        acc[key] += per[r["table"]] * r[key]
+                        if acc[key] is not None:
+                            acc[key] += per[r["table"]] * r[key]
             return acc
 
         step = total(lambda r: r["use"] == "decode",
                      {"up/gate": 2 * 16, "down": 16})
+        dw = total(lambda r: r["kernel"] == "grouped_gemm_dw",
+                   {"up/gate": 2, "down": 1})
+        self.details["moe_kernel_totals"] = {"decode_step": step,
+                                             "dw_layer": dw}
+        log(f"[time] grouped_gemm olmoe decode step (48 GEMMs): "
+            f"{step['ms']:.3f} ms, torch.matmul {step['library_ms']:.3f}, "
+            f"bound {step['bound_ms']:.3f}; one layer's three dW: "
+            f"{dw['ms']:.3f} ms, torch.matmul {dw['library_ms']:.3f}, "
+            f"bound {dw['bound_ms']:.3f} (FFMA {dw['ffma_bound_ms']:.3f})")
         self.record("grouped_gemm",
                     shape="one decode step of olmoe-1b-7b: 48 grouped GEMMs "
                           "(16 layers x up, gate, down), 64 rows over 64 "
                           "experts, p16 experts, cold; bound by bytes, summed "
                           "per GEMM; library: torch.matmul per non-empty "
-                          "group on f32 tables", bound_by="bytes", **step)
-        dw = total(lambda r: r["kernel"] == "grouped_gemm_dw",
-                   {"up/gate": 2, "down": 1})
+                          "group on f32 tables", bound_by="bytes",
+                    **{k: v for k, v in step.items() if k != "ffma_bound_ms"})
         self.record("grouped_gemm_dw",
                     shape="one training layer's three expert dW (S=32,768 "
-                          "rows, 8 x 512 tokens x top-8); bound by operations, "
+                          "rows, 8 x 512 tokens x top-8); bound by the "
+                          "tensor cores' bf16 products (6 per f32 product), "
                           "summed; library: torch.matmul(x.T, g) per "
-                          "non-empty group", bound_by="operations", **dw)
+                          "non-empty group", bound_by="operations",
+                    **{k: v for k, v in dw.items() if k != "ffma_bound_ms"})
 
     @contextlib.contextmanager
     def _recording_routes(self):
@@ -3426,6 +3572,9 @@ FLASH_LAYOUTS = [("smollm-360m", 15, 5, 64, True),
                  ("olmoe-1b-7b", 16, 16, 128, True),
                  ("recurrentgemma-9b", 16, 1, 256, True),
                  ("hubert-xlarge", 16, 16, 80, False)]
+# K10's decode and tiled forms and K11
+GROUPED_KERNEL_SYMBOLS = ("grouped_stream_kernel", "grouped_mma_kernel",
+                          "grouped_dw_kernel")
 # the flash kernels' device symbols (K7 and K14, K8, K9)
 FLASH_KERNEL_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                         "flash_bwd_dkv_kernel")
@@ -3715,6 +3864,11 @@ def main() -> int:
     ap.add_argument("--skinny-times", action="store_true", help="run only "
                     "the skinny form's timings (with --src, another "
                     "commit's kernel under the same harness)")
+    ap.add_argument("--grouped-times", action="store_true", help="run only "
+                    "K10/K11's timings at olmoe-1b-7b's decode, prefill and "
+                    "training shapes, without the plain versions (with "
+                    "--src, another commit's kernels under the same "
+                    "harness)")
     ap.add_argument("--src", default=None, help="the package root to run "
                     "(default: src/ beside this script; another commit's "
                     "unpacked src/ runs its kernels under this script's "
@@ -3750,6 +3904,11 @@ def main() -> int:
         log(json.dumps({k: s.details[k] for k in ("pw_gemm_model_steps",
                                                   "pw_gemm_model_shapes")}))
         return 0
+    if args.grouped_times:
+        s.time_moe_kernels(plain=False)
+        log(json.dumps({k: s.details[k] for k in ("moe_kernel_totals",
+                                                  "moe_kernel_shapes")}))
+        return 0
     regs = ptxas_report(build, "posit_gemm", ("gemm_mma_kernel",
                                               "splitk_reduce_kernel",
                                               "pw_skinny_kernel"))
@@ -3761,6 +3920,11 @@ def main() -> int:
     log(f"[build] posit_gemm: {len(tiled)} instances of the tiled kernel "
         f"and its split-K reduce, registers {tiled}; {len(skinny)} of the "
         f"skinny kernel, registers {skinny}; no spills")
+    regs = ptxas_report(build, "grouped_gemm", GROUPED_KERNEL_SYMBOLS)
+    s.details["grouped_gemm_ptxas"] = regs
+    log("[build] grouped_gemm: " + ", ".join(
+        f"{r['kernel']} {r['registers']}" for r in regs)
+        + " registers, no spills")
     regs = ptxas_report(build, "flash_prefill", FLASH_KERNEL_SYMBOLS)
     s.details["flash_prefill_ptxas"] = regs
     log("[build] flash_prefill: " + ", ".join(

@@ -64,8 +64,8 @@ SIGNATURES = {
                                                           _P),
     },
     "grouped_gemm": {
-        "posit_grouped_gemm": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),
-        "posit_grouped_gemm_dw": (_P, _P, _P, _P) + (_I,) * 4 + (_P,),
+        "posit_grouped_gemm": (_P, _P, _P, _P) + (_I,) * 12 + (_LL, _P),
+        "posit_grouped_gemm_dw": (_P, _P, _P, _P) + (_I,) * 7 + (_LL, _P),
     },
     "recurrent_scan": {
         "wkv_scan": (_P,) * 9 + (_I,) * 7 + (_P,),

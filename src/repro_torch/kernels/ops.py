@@ -71,6 +71,7 @@ def reset_counters() -> None:
     _gemm.posit_gemm.reduce_launches = 0
     _gemm.pw_gemm.reduce_launches = 0
     _ggemm.posit_grouped_gemm.transpose_b_launches = 0
+    _ggemm.posit_grouped_gemm.stream_launches = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -42,7 +42,7 @@ from repro_torch.kernels import build, ref
 # The plan constants of csrc/posit_gemm.cu (H100 SXM: 132 SMs).
 SMS = 132
 BK = 32                        # k per tile
-_PAD = 8                       # bf16 elements of padding per shared row
+PAD = 8                        # bf16 elements of padding per shared row
 STAGES = 2
 MAX_SPLITS = 8
 MIN_SLICE_TILES = 4            # k-tiles a split-K slice keeps
@@ -77,7 +77,7 @@ class GemmPlan(NamedTuple):
     smem: int                  # dynamic shared bytes
 
 
-def _cdiv(a: int, b: int) -> int:
+def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
@@ -94,25 +94,32 @@ def gemm_plan(M: int, N: int, K: int, kinds=("f32", "f32"),
     tenth; the tile is kept if its blocks are busy at least 3/4 of that
     time, and the smallest tile regardless.  No slice is empty."""
     pa, pb = PIECES[kinds[0]], PIECES[kinds[1]]
-    nk = _cdiv(max(K, 1), BK)
+    nk = cdiv(max(K, 1), BK)
     for i, (bm, bn, wm, wn) in enumerate(TILES):
-        tiles = _cdiv(M, bm) * _cdiv(N, bn)
-        cost1 = best = _cdiv(tiles, SMS) * nk
+        tiles = cdiv(M, bm) * cdiv(N, bn)
+        cost1 = best = cdiv(tiles, SMS) * nk
         splits, per = 1, nk
         if tiles < 2 * SMS:
             for s in range(2, min(MAX_SPLITS, nk // MIN_SLICE_TILES) + 1):
-                p = _cdiv(nk, s)
-                se = _cdiv(nk, p)
-                c = _cdiv(tiles * se, SMS) * p
+                p = cdiv(nk, s)
+                se = cdiv(nk, p)
+                c = cdiv(tiles * se, SMS) * p
                 if c < best and 10 * c <= 9 * cost1:
                     best, splits, per = c, se, p
         if 4 * tiles * nk >= 3 * SMS * best or i == len(TILES) - 1:
             break
-    a_rows, a_cols = (BK, bm) if transpose_a else (bm, BK)
-    b_rows, b_cols = (bn, BK) if transpose_b else (BK, bn)
-    smem = 2 * STAGES * (pa * a_rows * (a_cols + _PAD)
-                         + pb * b_rows * (b_cols + _PAD))
-    return GemmPlan(bm, bn, BK, STAGES, splits, per, wm * wn * 32, smem)
+    return GemmPlan(bm, bn, BK, STAGES, splits, per, wm * wn * 32,
+                    mma_smem(bm, bn, pa, pb, transpose_a, transpose_b))
+
+
+def mma_smem(bm: int, bn: int, pa: int, pb: int, ta: bool, tb: bool) -> int:
+    """Dynamic shared bytes of the tensor-core k-loop's two stages of bf16
+    planes (``csrc/gemm_pieces.cuh::mma_smem``): pa / pb pieces of A (TA:
+    stored [k][m]) and B (TB: stored [n][k]), rows padded by PAD."""
+    a_rows, a_cols = (BK, bm) if ta else (bm, BK)
+    b_rows, b_cols = (bn, BK) if tb else (BK, bn)
+    return 2 * STAGES * (pa * a_rows * (a_cols + PAD)
+                         + pb * b_rows * (b_cols + PAD))
 
 
 class SkinnyPlan(NamedTuple):
@@ -147,7 +154,7 @@ def skinny_plan(M: int, N: int, K: int, transpose_b: bool = False,
     mp = 4 if M <= 4 else 8
     ve = 16 // elem_bytes
     cpt, kpg = (4, ve) if transpose_b else (ve, 1)
-    ng = _cdiv(max(K, 1), kpg)
+    ng = cdiv(max(K, 1), kpg)
     xs_groups = SK_XS_BYTES // (4 * kpg * mp)
     # by registers: one block an SM past 64 accumulators a lane, and for
     # [N, K] weights at 8 rows (they spilled at 128 registers)
@@ -155,10 +162,10 @@ def skinny_plan(M: int, N: int, K: int, transpose_b: bool = False,
     best, best_cost = None, -1
     for tn in SK_TN[transpose_b]:
         tk, bn = SK_THREADS // tn, tn * cpt
-        tiles = _cdiv(N, bn)
+        tiles = cdiv(N, bn)
         for cs in range(1, SK_MAX_CLUSTER + 1):
-            per = _cdiv(ng, cs)
-            if _cdiv(ng, per) != cs:
+            per = cdiv(ng, cs)
+            if cdiv(ng, per) != cs:
                 continue
             chunk = min(per, xs_groups)
             red = 4 * (tk // 2) * (mp * bn + 4)
@@ -173,8 +180,8 @@ def skinny_plan(M: int, N: int, K: int, transpose_b: bool = False,
             groups = min(tiles, max(1, SMS * bps // cs))
             if cs > 1 and groups < tiles:
                 continue                 # a cluster takes one tile
-            nch = _cdiv(per, chunk)
-            cost = _cdiv(tiles, groups) * (
+            nch = cdiv(per, chunk)
+            cost = cdiv(tiles, groups) * (
                 per * kpg * bn + nch * (SK_TILE_COST + (SK_CLUSTER_COST
                                                         if cs > 1 else 0)))
             if best is None or cost < best_cost:
