@@ -5,6 +5,8 @@
     python3 chip_smoke.py --rwkv-layers [--src DIR]
     python3 chip_smoke.py --skinny-times [--src DIR]
     python3 chip_smoke.py --grouped-times [--src DIR]
+    python3 chip_smoke.py --paged-times [--src DIR]
+    python3 chip_smoke.py --flash-sass DIR
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -13,7 +15,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    and ptxas's registers of every instance of the tiled posit GEMM and its
    split-K reduce, of the grouped GEMM's decode and tiled forms and its dW
    (K10, K11) and of the flash kernels (K7, K8, K9), none of which may
-   spill;
+   spill, nor may the paged decode (K3) or K7's paged instance (K4);
 2. every kernel against its plain PyTorch version on the card, at the
    shapes of full-width smollm-360m, for posit16, posit8 and float pages:
    the codec bit-exact (exhaustive decode, encode over an f32 sweep), the
@@ -28,7 +30,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    1/3/8 x N 1/100/1,000 x K 1/7/33/4,096 and every served decode shape
    of the four models at M = 8 within the f32 bound, every launch
    repeated bit-identical, and the instructions per weight element of
-   its P16_2 main loop from the SASS; the paged attention within 1e-4;
+   its P16_2 main loop from the SASS; the paged attention (K3, K4) within
+   1e-4, every launch repeated bit-identical, also at the smoke
+   configs' head_dim 20, and both dropping a visible page whose table
+   entry lies outside the pool (K4 at Sq = 1, with and without a
+   softcap);
    each kernel also timed beside its plain version, one PyTorch library
    call where one exists, and the card's bound (K2's skinny form also at
    every M = 8 decode shape of rwkv6-3b and recurrentgemma-9b, summed
@@ -105,7 +111,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    and K13's outputs bit-identical, K12's y within the f32 bound; the paged
    attention (K3/K4) at head_dim 256 with 16 query heads per kv head,
    window 2,048 and the pages before it reclaimed to a garbage page of NaR
-   patterns; the [BH, Sq, D] attention (K14, D = 64, 256 and 80); their
+   patterns, every launch repeated bit-identical; the [BH, Sq, D]
+   attention (K14, D = 64, 256 and 80); their
    timings beside the plain versions, the bound and SDPA for K14 (at D =
    64 and 256), and a counted
    `ops.attention` run; (b) rwkv6-3b and recurrentgemma-9b at full width
@@ -130,7 +137,12 @@ runs only the skinny K2's timings at every M = 8 decode shape of
 smollm-360m, rwkv6-3b and recurrentgemma-9b, and with ``--src`` another
 commit's kernel under the same harness; ``--grouped-times`` does the same
 for K10 and K11 at olmoe-1b-7b's decode, prefill and training shapes
-(without the plain versions).
+(without the plain versions); ``--paged-times`` for K3 and K4 at
+smollm-360m's and recurrentgemma-9b's layers beside SDPA (another commit's
+kernels through that commit's own wrappers with ``--src``).
+``--flash-sass DIR`` compares the SASS of the contiguous flash kernels (K7
+and K14, K8, K9) with those of another tree's unpacked ``src/`` (exit 1 if
+an instance differs).
 """
 from __future__ import annotations
 
@@ -195,6 +207,14 @@ def gpu_max_sm_clock_mhz() -> float:
     return float(res.stdout.strip().splitlines()[0])
 
 
+def cuobjdump_sass(lib_path: str) -> str:
+    """`cuobjdump -sass` of a built library (the toolkit's, beside nvcc)."""
+    from repro_torch.kernels.build import nvcc
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
 def sass_per_lane(lib_path: str, kernel: str, lanes: int):
     """SASS instructions per lane of one kernel instantiation, from
     `cuobjdump -sass` on the built library: the static instruction count
@@ -204,11 +224,7 @@ def sass_per_lane(lib_path: str, kernel: str, lanes: int):
     copies and branches no lane takes included.  Returns (count, method);
     raises when the count cannot be read."""
     import re
-    from repro_torch.kernels.build import nvcc
-    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                         text=True, timeout=300, check=True).stdout
-    for chunk in out.split("Function : ")[1:]:
+    for chunk in cuobjdump_sass(lib_path).split("Function : ")[1:]:
         if kernel not in chunk.split("\n", 1)[0]:
             continue
         ins = [(int(a, 16), text) for a, text in re.findall(
@@ -224,6 +240,50 @@ def sass_per_lane(lib_path: str, kernel: str, lanes: int):
         return span / lanes, (f"static SASS of the vector loop: {span} "
                               f"instructions / {lanes} lanes")
     raise RuntimeError(f"{kernel} not in the SASS of {lib_path}")
+
+
+def sass_functions(lib_path: str, kernels: tuple[str, ...]) -> dict:
+    """{symbol from the kernel's name on (the namespace's mangling cut):
+    its SASS text, addresses cut} of every function of `lib_path` whose
+    symbol names one of `kernels` (followed by its template arguments),
+    from `cuobjdump -sass`."""
+    import re
+    funcs = {}
+    for chunk in cuobjdump_sass(lib_path).split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        for k in kernels:
+            if f"{k}I" in name:
+                funcs[name[name.index(f"{k}I"):]] = "\n".join(re.findall(
+                    r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", chunk))
+    return funcs
+
+
+def flash_sass_same(other_src: str) -> dict:
+    """The contiguous flash kernels' SASS (K7 and K14's flash_fwd_kernel,
+    K8, K9) in this tree's flash_prefill library against another tree's
+    (`other_src`: its unpacked src/), built alike: per kernel, the
+    instances and how many are identical instruction for instruction."""
+    from repro_torch.kernels import build
+    build.build_all(("flash_prefill",))
+    here = build.library_path("flash_prefill")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.kernels import build; "
+            "build.build_all(('flash_prefill',)); "
+            "print(build.library_path('flash_prefill'))")
+    there = subprocess.run([sys.executable, "-c", code, other_src],
+                           capture_output=True, text=True, timeout=900,
+                           check=True).stdout.strip().splitlines()[-1]
+    names = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+             "flash_bwd_dkv_kernel")
+    a, b = sass_functions(str(here), names), sass_functions(there, names)
+    res = {}
+    for k in names:
+        mine = {n: t for n, t in a.items() if n.startswith(f"{k}I")}
+        res[k] = {"instances": len(mine),
+                  "identical": sum(b.get(n) == t for n, t in mine.items()),
+                  "differ": sorted(n for n, t in mine.items()
+                                   if b.get(n) != t)}
+    return res
 
 
 def ptxas_report(build, lib: str, kernels: tuple[str, ...]) -> list[dict]:
@@ -465,9 +525,9 @@ class Smoke:
         self.details["gemm_worst_err_over_bound"] = worst
 
     def _repeat_same(self, label, got, again):
-        """A K2 launch repeated on the same inputs: bit-identical (fixed
-        summation order; split-K reduced in slice order, the skinny form's
-        cluster in rank order)."""
+        """A launch repeated on the same inputs: bit-identical (fixed
+        summation order; K2's split-K reduced in slice order, the skinny
+        form's and K3's clusters in rank order)."""
         torch = self.torch
         if got.dtype == torch.float32:
             got, again = got.view(torch.int32), again.view(torch.int32)
@@ -803,6 +863,10 @@ class Smoke:
                 self._compare_attn("paged_flash_decode",
                                    f"{fmt} window={window}", got, want, live,
                                    dead_zero=True)
+                self._repeat_same(f"paged_flash_decode {fmt} window="
+                                  f"{window}", got, F.paged_flash_decode(
+                                      q, kp, vp, table, sl, cfg_kv=cfg,
+                                      window=window))
             for Sq in (1, 64, 128):
                 qo = torch.tensor([0, 16, 37, 128, 256, 400, 0, 5],
                                   dtype=torch.int32, device=self.dev)
@@ -827,6 +891,124 @@ class Smoke:
                         "paged_flash_prefill",
                         f"{fmt} Sq={Sq} window={window} softcap={softcap}",
                         got, want, live, dead_zero=False)
+                    self._repeat_same(
+                        f"paged_flash_prefill {fmt} Sq={Sq} window={window} "
+                        f"softcap={softcap}", got, F.paged_flash_prefill(
+                            q, kp, vp, table, sl, qo, cfg_kv=cfg,
+                            window=window, softcap=softcap))
+
+    def check_attention_smoke_layout(self):
+        """K3 and K4 at the smoke configs' head_dim 20 (smollm-360m's smoke
+        layout: 6 query heads on 2 kv heads; D % 8 == 4), posit16, posit8
+        and float pages, with a window, within ATTN_TOL and repeated
+        bit-identical.  Its inputs come from a generator of its own, so
+        the other phases' inputs stay as they were."""
+        torch = self.torch
+        from repro_torch.core.types import P8_2, P16_2
+        from repro_torch.kernels import flash_attention as F
+        saved = self.gen
+        self.gen = torch.Generator(device=self.dev).manual_seed(20)
+        try:
+            B, H, n_kv, page, D, W, P = 4, 6, 2, 16, 20, 8, 40
+            sl = torch.tensor([1, 40, 0, 128], dtype=torch.int32,
+                              device=self.dev)
+            qo = torch.tensor([0, 8, 0, 100], dtype=torch.int32,
+                              device=self.dev)
+            live = (sl > 0)[:, None, None].expand(B, H, D)
+            rows = torch.arange(32, device=self.dev)
+            plive = (rows[None, :] < (sl - qo)[:, None])[:, None, :, None]
+            plive = plive.expand(B, H, 32, D)
+            for cfg in (P16_2, P8_2, None):
+                fmt = cfg or "float"
+                kp, vp = self._pool(cfg, P, n_kv, page, D)
+                table = self._table(B, W, P)
+                q = self.randn(B, H, D)
+                qq = self.randn(B, H, 32, D)
+                for window in (None, 24):
+                    got = F.paged_flash_decode(q, kp, vp, table, sl,
+                                               cfg_kv=cfg, window=window)
+                    want = F.paged_flash_decode_plain(
+                        q, kp, vp, table, sl, cfg_kv=cfg, window=window)
+                    self._compare_attn("paged_flash_decode",
+                                       f"D=20 {fmt} window={window}", got,
+                                       want, live, dead_zero=True)
+                    self._repeat_same(f"paged_flash_decode D=20 {fmt}", got,
+                                      F.paged_flash_decode(
+                                          q, kp, vp, table, sl, cfg_kv=cfg,
+                                          window=window))
+                    got = F.paged_flash_prefill(qq, kp, vp, table, sl, qo,
+                                                cfg_kv=cfg, window=window)
+                    want = F.paged_flash_prefill_plain(
+                        qq, kp, vp, table, sl, qo, cfg_kv=cfg,
+                        window=window)
+                    self._compare_attn("paged_flash_prefill",
+                                       f"D=20 {fmt} window={window}", got,
+                                       want, plive, dead_zero=False)
+                    self._repeat_same(f"paged_flash_prefill D=20 {fmt}", got,
+                                      F.paged_flash_prefill(
+                                          qq, kp, vp, table, sl, qo,
+                                          cfg_kv=cfg, window=window))
+        finally:
+            self.gen = saved
+
+    def check_attention_bad_entries(self):
+        """A visible key on a page-table entry outside the pool is dropped
+        by K3 and by K4 alike.  At smollm-360m's layout and at D = 256, G =
+        16, posit16 pages, one whole visible page of each of two sequences
+        sits on entry -1 and on entry P + 5; K3 and K4 at Sq = 1 (the
+        decode form, also with a softcap, which serving routes to K4) are
+        held within ATTN_TOL against the plain version over the table with
+        those pages taken out and seq_lens a page shorter: a decode query
+        without a window sees every earlier key, so dropping a page is
+        taking it out.  Rows that see no key are exactly 0, and K4 repeats
+        bit-identical.  Its inputs come from a generator of its own, so
+        the other phases' inputs stay as they were."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import flash_attention as F
+        saved = self.gen
+        self.gen = torch.Generator(device=self.dev).manual_seed(23)
+        try:
+            B, page, W, P = 4, 16, 12, 60
+            sl = torch.tensor([40, 100, 0, 17], dtype=torch.int32,
+                              device=self.dev)
+            short = sl - torch.tensor([page, page, 0, 0], dtype=torch.int32,
+                                      device=self.dev)
+            live = (sl > 0)[:, None, None]
+            for H, n_kv, D in ((15, 5, 64), (16, 1, 256)):
+                at = f"D={D} G={H // n_kv} entries outside the pool"
+                kp, vp = self._pool(P16_2, P, n_kv, page, D)
+                table = self._table(B, W, P)
+                bad = table.clone()
+                bad[0, 1] = -1
+                bad[1, 3] = P + 5
+                cut = table.clone()
+                cut[0, 1:-1] = table[0, 2:]
+                cut[1, 3:-1] = table[1, 4:]
+                q = self.randn(B, H, D)
+                got = F.paged_flash_decode(q, kp, vp, bad, sl, cfg_kv=P16_2)
+                want = F.paged_flash_decode_plain(q, kp, vp, cut, short,
+                                                  cfg_kv=P16_2)
+                self._compare_attn("paged_flash_decode", at, got, want,
+                                   live.expand(B, H, D), dead_zero=True)
+                for softcap in (None, 30.0):
+                    got = F.paged_flash_prefill(q[:, :, None], kp, vp, bad,
+                                                sl, sl - 1, cfg_kv=P16_2,
+                                                softcap=softcap)
+                    want = F.paged_flash_prefill_plain(
+                        q[:, :, None], kp, vp, cut, short, short - 1,
+                        cfg_kv=P16_2, softcap=softcap)
+                    self._compare_attn(
+                        "paged_flash_prefill", f"{at} Sq=1 softcap="
+                        f"{softcap}", got, want,
+                        live[..., None].expand(B, H, 1, D), dead_zero=True)
+                    self._repeat_same(
+                        f"paged_flash_prefill {at} softcap={softcap}", got,
+                        F.paged_flash_prefill(q[:, :, None], kp, vp, bad, sl,
+                                              sl - 1, cfg_kv=P16_2,
+                                              softcap=softcap))
+        finally:
+            self.gen = saved
 
     # ---- phase 2b: timings at the main path's shapes ---------------------
     def time_kernels(self):
@@ -932,59 +1114,117 @@ class Smoke:
                     library_ms=per_step["library_ms"], bound_ms=b,
                     bound_by=by)
 
-        # K3: one layer of a decode step, 8 sequences at 128..544 tokens
-        B, H, n_kv, page, D, W, P = 8, 15, 5, 16, 64, 34, 273
-        G_ = H // n_kv
-        sl = torch.tensor([160, 224, 300, 356, 420, 480, 512, 544],
-                          dtype=torch.int32, device=self.dev)
-        table = self._table(B, W, P)
-        toks = int(sl.sum())
-        nbytes = 2 * toks * n_kv * D * 2 + 2 * B * H * D * 4 + B * 4
-        pools = [self._pool(cfg, P, n_kv, page, D)
-                 for _ in range(copies_for(nbytes, 24))]
-        q = self.randn(B, H, D)
-        sets = [(q, kp, vp, table, sl) for kp, vp in pools]
-        b, by = bound(nbytes, 4.0 * toks * H * D)
-        kern = time_ms(torch, lambda *a: F.paged_flash_decode(
-            *a, cfg_kv=cfg), sets, it, "paged_flash_decode")
-        plain = time_ms(torch, lambda *a: F.paged_flash_decode_plain(
-            *a, cfg_kv=cfg), sets, 10, "paged_flash_decode_plain")
-        lib = self._sdpa_ms(pools, table, sl, q[:, :, None, :],
-                            sl - 1, causal=True)
-        self.record("paged_flash_decode",
-                    shape="one layer, decode step: 8 seqs, 160..544 tokens, "
-                          "p16 pages",
-                    ms=kern, plain_ms=plain, library_ms=lib, bound_ms=b,
-                    bound_by=by)
+        # K3 and K4 at smollm-360m's layer (the rows of PERF.md's table)
+        rows = self.time_paged(("smollm",))
+        for name, key in (("paged_flash_decode", "paged_flash_decode "
+                           "smollm"), ("paged_flash_prefill",
+                                       "paged_flash_prefill smollm")):
+            rec = rows[key]
+            self.record(name, shape=rec["shape"], ms=rec["ms"],
+                        plain_ms=rec["plain_ms"],
+                        library_ms=rec["library_ms"],
+                        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"])
 
-        # K4: one layer of a prefill step, 8 x 128-query chunks mid-prompt
-        Sq = 128
-        qo = torch.tensor([0, 128, 256, 384, 0, 128, 256, 384],
-                          dtype=torch.int32, device=self.dev)
-        sl = qo + Sq
-        keys = int(((qo + torch.arange(1, Sq + 1, device=self.dev)[:, None]
-                     ).sum()))           # causal keys over all query rows
-        toks = int(sl.sum())
-        nbytes = (2 * toks * n_kv * D * 2 + 2 * B * H * Sq * D * 4
-                  + 2 * B * 4)
-        q = self.randn(B, H, Sq, D)
-        sets = [(q, kp, vp, table, sl, qo) for kp, vp in pools]
-        b, by = bound(nbytes, 4.0 * keys * H * D)
-        kern = time_ms(torch, lambda *a: F.paged_flash_prefill(
-            *a, cfg_kv=cfg), sets, it, "paged_flash_prefill")
-        plain = time_ms(torch, lambda *a: F.paged_flash_prefill_plain(
-            *a, cfg_kv=cfg), sets, 5, "paged_flash_prefill_plain")
-        lib = self._sdpa_ms(pools, table, sl, q, qo, causal=True)
-        self.record("paged_flash_prefill",
-                    shape="one layer, prefill step: 8 x 128 queries at "
-                          "offsets 0..384, p16 pages",
-                    ms=kern, plain_ms=plain, library_ms=lib, bound_ms=b,
-                    bound_by=by)
+    def time_paged(self, which=("smollm", "d256"), plain=True):
+        """K3 and K4 at the shapes of PERF.md's kernel table, posit16
+        pages, cold: ("smollm") one smollm-360m layer (15/5 heads, D = 64)
+        of a decode step (8 sequences at 160..544 tokens) and of a prefill
+        step (8 x 128 queries at offsets 0..384); ("d256") recurrentgemma-
+        9b's attention (16 heads on one kv head, D = 256, window 2,048) at
+        the same lengths and at 8 x 2,208 tokens, the pages before the
+        window reclaimed to page 0.  Each beside the plain version (unless
+        `plain` is False), one SDPA call over the gathered, decoded KV with
+        the same masks, and the bound.  Returns {label: numbers}."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import flash_attention as F
+        cfg = P16_2
+        lens = [160, 224, 300, 356, 420, 480, 512, 544]
+        cases = []
+        if "smollm" in which:
+            cases.append(("smollm", 8, 15, 5, 64, None, lens, 273, False))
+        if "d256" in which:
+            cases += [("D=256 160..544", 8, 16, 1, 256, 2048, lens, None,
+                       True),
+                      ("D=256 8 x 2208", 8, 16, 1, 256, 2048, [2208] * 8,
+                       None, True)]
+        rows = {}
+        for label, B, H, n_kv, D, win, lens_, P, reclaim in cases:
+            page = 16
+            sl = torch.tensor(lens_, dtype=torch.int32, device=self.dev)
+            W = -(-max(lens_) // page)
+            P = P or B * W + 1
+            table = (self._reclaimed_table(B, W, P, sl - 1, win, page)
+                     if reclaim else self._table(B, W, P))
+            keys = int(torch.clamp(sl, max=win or 1 << 30).sum())
+            nbytes = 2 * keys * n_kv * D * 2 + 2 * B * H * D * 4 + B * 4
+            pools = [self._pool(cfg, P, n_kv, page, D)
+                     for _ in range(copies_for(nbytes, 24 if D == 64
+                                               else 8))]
+            q = self.randn(B, H, D)
+            sets = [(q, kp, vp, table, sl) for kp, vp in pools]
+            bnd, by = bound(nbytes, 4.0 * keys * H * D)
+            kern = time_ms(torch, lambda *a: F.paged_flash_decode(
+                *a, cfg_kv=cfg, window=win), sets, ITERS,
+                f"paged_flash_decode {label}")
+            pl = (time_ms(torch, lambda *a: F.paged_flash_decode_plain(
+                *a, cfg_kv=cfg, window=win), sets, 10 if D == 64 else 5,
+                f"paged_flash_decode_plain {label}") if plain else None)
+            lib = self._sdpa_ms(pools, table, sl, q[:, :, None, :], sl - 1,
+                                causal=True, window=win)
+            rows[f"paged_flash_decode {label}"] = dict(
+                shape=f"one layer, decode step: {B} seqs, {label} "
+                      f"({min(lens_)}..{max(lens_)} tokens), G={H // n_kv}, "
+                      f"D={D}, window={win}, p16 pages",
+                ms=kern, plain_ms=pl, library_ms=lib, bound_ms=bnd,
+                bound_by=by)
+            Sq = 128
+            if reclaim:
+                qo = (sl - Sq).clamp(min=0)
+            else:
+                qo = torch.tensor([0, 128, 256, 384, 0, 128, 256, 384],
+                                  dtype=torch.int32, device=self.dev)
+                sl = qo + Sq
+            w_ = win or 1 << 30
+            keys = int(sum(min(int(o) + i + 1, w_)
+                           for o in qo.tolist() for i in range(Sq)))
+            nbytes = (2 * int(torch.clamp(sl, max=w_ + Sq).sum()) * n_kv * D
+                      * 2 + 2 * B * H * Sq * D * 4 + 2 * B * 4)
+            qq = self.randn(B, H, Sq, D)
+            if reclaim:
+                table = self._reclaimed_table(B, W, P, qo, win, page)
+            sets = [(qq, kp, vp, table, sl, qo) for kp, vp in pools]
+            bnd, by = bound(nbytes, 4.0 * keys * H * D)
+            kern = time_ms(torch, lambda *a: F.paged_flash_prefill(
+                *a, cfg_kv=cfg, window=win), sets, ITERS,
+                f"paged_flash_prefill {label}")
+            pl = (time_ms(torch, lambda *a: F.paged_flash_prefill_plain(
+                *a, cfg_kv=cfg, window=win), sets, 5 if D == 64 else 3,
+                f"paged_flash_prefill_plain {label}") if plain else None)
+            lib = self._sdpa_ms(pools, table, sl, qq, qo, causal=True,
+                                window=win)
+            rows[f"paged_flash_prefill {label}"] = dict(
+                shape=f"one layer, prefill step: {B} x {Sq} queries over "
+                      f"{int(sl.min())}..{int(sl.max())} keys, G="
+                      f"{H // n_kv}, D={D}, window={win}, p16 pages",
+                ms=kern, plain_ms=pl, library_ms=lib, bound_ms=bnd,
+                bound_by=by)
+            del pools, sets
+            torch.cuda.empty_cache()
+        card = self.details["gpu"]
+        for name, rec in rows.items():
+            pl = rec["plain_ms"]
+            log(f"[time] {name}: {rec['ms']:.4f} ms ("
+                f"{'' if pl is None else f'plain {pl:.4f}, '}SDPA "
+                f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} by "
+                f"{rec['bound_by']}) ({card})")
+        self.details.setdefault("paged_kernel_times", {}).update(rows)
+        return rows
 
-    def _sdpa_ms(self, pools, table, sl, q, qo, causal):
+    def _sdpa_ms(self, pools, table, sl, q, qo, causal, window=None):
         """One scaled_dot_product_attention call over the gathered, decoded
-        dense KV (GQA grouped, masks as the kernel's): the library
-        yardstick, timed only."""
+        dense KV (GQA grouped, masks as the kernel's, the window's too):
+        the library yardstick, timed only."""
         torch = self.torch
         from repro_torch.core.types import P16_2
         from repro_torch.kernels import ref
@@ -998,6 +1238,9 @@ class Smoke:
             mask = kpos[None, None, :] < sl[:, None, None]
             if causal:
                 mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+            if window is not None:
+                mask = mask & (qpos[:, :, None] - kpos[None, None, :]
+                               < window)
             sets.append((q, k, v, mask[:, None]))
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -3087,6 +3330,9 @@ class Smoke:
             if not self._same_bits(got, clean):
                 raise AssertionError(f"paged_flash_decode D=256 {fmt}: the "
                                      f"NaR garbage page reached the output")
+            self._repeat_same(f"paged_flash_decode D=256 {fmt}", got,
+                              F.paged_flash_decode(q, kn, vn, table, sl,
+                                                   cfg_kv=cfg, window=win))
             self._compare_attn("paged_flash_decode",
                                f"D=256 G=16 {fmt} window={win} NaR garbage",
                                got, want, live, dead_zero=True)
@@ -3110,6 +3356,9 @@ class Smoke:
             if not self._same_bits(got[live], clean[live]):
                 raise AssertionError(f"paged_flash_prefill D=256 {fmt}: the "
                                      f"NaR garbage page reached the output")
+            self._repeat_same(f"paged_flash_prefill D=256 {fmt}", got,
+                              F.paged_flash_prefill(q, kn, vn, table, sl, qo,
+                                                    cfg_kv=cfg, window=win))
             self._compare_attn("paged_flash_prefill",
                                f"D=256 G=16 {fmt} Sq=128 window={win} NaR "
                                f"garbage", got, want, live, dead_zero=False)
@@ -3167,9 +3416,9 @@ class Smoke:
         """K12 and K13 at a decode step's (T = 1) and a prefill chunk's
         (T = 128) shapes with posit16 state, one layer each; K3/K4 at D =
         256, G = 16 (recurrentgemma's attention) at the smollm rows' lengths
-        and at 8 x 2,208 tokens with the 2,048 window; K14 at [120, 512,
-        64] and [128, 512, 256] causal, posit16 and f32 KV, beside
-        SDPA."""
+        and at 8 x 2,208 tokens with the 2,048 window (time_paged, beside
+        SDPA with the window's mask); K14 at [120, 512, 64] and [128, 512,
+        256] causal, posit16 and f32 KV, beside SDPA."""
         torch = self.torch
         from repro_torch.core.types import P16_2
         from repro_torch.kernels import flash_attention as F
@@ -3223,48 +3472,8 @@ class Smoke:
                             ms=kern, plain_ms=plain, library_ms=None,
                             bound_ms=bnd, bound_by=by)
 
-        # K3/K4 at D = 256, G = 16
-        B, H, n_kv, page, D, win = 8, 16, 1, 16, 256, 2048
-        for label, lens in (("160..544", [160, 224, 300, 356, 420, 480, 512,
-                                          544]),
-                            ("8 x 2208", [2208] * 8)):
-            sl = torch.tensor(lens, dtype=torch.int32, device=self.dev)
-            W = -(-max(lens) // page)
-            P = B * W + 1
-            table = self._reclaimed_table(B, W, P, sl - 1, win, page)
-            keys = int(torch.clamp(sl, max=win).sum())
-            nbytes = 2 * keys * n_kv * D * 2 + 2 * B * H * D * 4 + B * 4
-            pools = [self._pool(P16_2, P, n_kv, page, D)
-                     for _ in range(copies_for(nbytes, 8))]
-            q = self.randn(B, H, D)
-            sets = [(q, kp, vp, table, sl) for kp, vp in pools]
-            bnd, by = bound(nbytes, 4.0 * keys * H * D)
-            kern = time_ms(torch, lambda *a: F.paged_flash_decode(
-                *a, cfg_kv=P16_2, window=win), sets, ITERS,
-                "paged_flash_decode D=256")
-            plain = time_ms(torch, lambda *a: F.paged_flash_decode_plain(
-                *a, cfg_kv=P16_2, window=win), sets, 5,
-                "paged_flash_decode_plain D=256")
-            rows[f"paged_flash_decode D=256 {label}"] = dict(
-                ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
-            Sq = 128
-            qo = (sl - Sq).clamp(min=0)
-            keys = int(sum(min(int(o) + i + 1, win)
-                           for o in qo.tolist() for i in range(Sq)))
-            nbytes = (2 * int(torch.clamp(sl, max=win + Sq).sum()) * D * 2
-                      + 2 * B * H * Sq * D * 4 + 2 * B * 4)
-            qq = self.randn(B, H, Sq, D)
-            table = self._reclaimed_table(B, W, P, qo, win, page)
-            sets = [(qq, kp, vp, table, sl, qo) for kp, vp in pools]
-            bnd, by = bound(nbytes, 4.0 * keys * H * D)
-            kern = time_ms(torch, lambda *a: F.paged_flash_prefill(
-                *a, cfg_kv=P16_2, window=win), sets, ITERS,
-                "paged_flash_prefill D=256")
-            plain = time_ms(torch, lambda *a: F.paged_flash_prefill_plain(
-                *a, cfg_kv=P16_2, window=win), sets, 3,
-                "paged_flash_prefill_plain D=256")
-            rows[f"paged_flash_prefill D=256 {label}"] = dict(
-                ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        # K3/K4 at D = 256, G = 16 (beside SDPA with the window's mask)
+        rows.update(self.time_paged(("d256",)))
 
         # K14 at [120, 512, 64] and [128, 512, 256], posit16 KV, causal
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3305,6 +3514,8 @@ class Smoke:
         self.details["recurrent_kernel_times"] = rows
         card = self.details["gpu"]
         for name, rec in rows.items():
+            if name.startswith("paged_"):
+                continue                        # logged by time_paged
             lib, pl = rec.get("library_ms"), rec["plain_ms"]
             log(f"[time] {name}: {rec['ms']:.4f} ms ("
                 f"{'' if pl is None else f'plain {pl:.4f}, '}"
@@ -3575,9 +3786,10 @@ FLASH_LAYOUTS = [("smollm-360m", 15, 5, 64, True),
 # K10's decode and tiled forms and K11
 GROUPED_KERNEL_SYMBOLS = ("grouped_stream_kernel", "grouped_mma_kernel",
                           "grouped_dw_kernel")
-# the flash kernels' device symbols (K7 and K14, K8, K9)
-FLASH_KERNEL_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                        "flash_bwd_dkv_kernel")
+# the flash kernels' device symbols (K7 and K14, K4: K7's paged instance,
+# K8, K9)
+FLASH_KERNEL_SYMBOLS = ("flash_fwd_kernel", "flash_fwd_paged_kernel",
+                        "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 TRAINING_KERNELS = ("flash_prefill", "flash_prefill_bwd_dq",
                     "flash_prefill_bwd_dkv", "posit_gemm_transpose_a")
 SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
@@ -3632,11 +3844,7 @@ def sass_loop_profile(lib_path: str, kernel: str, mp: int) -> dict:
     loads' fallback, are left out.  A diagnostic of the code, not a
     timing."""
     import re
-    from repro_torch.kernels.build import nvcc
-    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    for chunk in text.split("Function : ")[1:]:
+    for chunk in cuobjdump_sass(lib_path).split("Function : ")[1:]:
         if kernel not in chunk.split("\n", 1)[0]:
             continue
         ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t))
@@ -3825,7 +4033,7 @@ KERNEL_META = {
                 "src/repro/kernels/posit_gemm.py:158"),
     "paged_flash_decode": ("src/repro_torch/csrc/paged_attention.cu",
                            "src/repro/kernels/flash_attention.py:650"),
-    "paged_flash_prefill": ("src/repro_torch/csrc/paged_attention.cu",
+    "paged_flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                             "src/repro/kernels/flash_attention.py:259"),
     "elementwise": ("src/repro_torch/csrc/posit_elementwise.cu",
                     "src/repro/kernels/posit_elementwise.py:50"),
@@ -3869,6 +4077,15 @@ def main() -> int:
                     "training shapes, without the plain versions (with "
                     "--src, another commit's kernels under the same "
                     "harness)")
+    ap.add_argument("--paged-times", action="store_true", help="run only "
+                    "K3/K4's timings at smollm-360m's and recurrentgemma-"
+                    "9b's layers, beside SDPA, without the plain versions "
+                    "(with --src, another commit's kernels through its own "
+                    "wrappers under the same harness)")
+    ap.add_argument("--flash-sass", default=None, metavar="DIR",
+                    help="run only the SASS comparison of the contiguous "
+                    "flash kernels (K7/K14, K8, K9) with another tree's "
+                    "unpacked src/ DIR")
     ap.add_argument("--src", default=None, help="the package root to run "
                     "(default: src/ beside this script; another commit's "
                     "unpacked src/ runs its kernels under this script's "
@@ -3904,6 +4121,14 @@ def main() -> int:
         log(json.dumps({k: s.details[k] for k in ("pw_gemm_model_steps",
                                                   "pw_gemm_model_shapes")}))
         return 0
+    if args.flash_sass:
+        same = flash_sass_same(os.path.abspath(args.flash_sass))
+        log(json.dumps(same))
+        return 0 if all(not r["differ"] and r["instances"]
+                        for r in same.values()) else 1
+    if args.paged_times:
+        log(json.dumps(s.time_paged(plain=False)))
+        return 0
     if args.grouped_times:
         s.time_moe_kernels(plain=False)
         log(json.dumps({k: s.details[k] for k in ("moe_kernel_totals",
@@ -3930,6 +4155,10 @@ def main() -> int:
     log("[build] flash_prefill: " + ", ".join(
         f"{r['kernel']} {r['registers']}" for r in regs)
         + " registers, no spills")
+    regs = ptxas_report(build, "paged_attention", ("paged_decode_kernel",))
+    s.details["paged_attention_ptxas"] = regs
+    log("[build] paged_attention: paged_decode_kernel registers "
+        f"{sorted(r['registers'] for r in regs)}, no spills")
     t0 = time.perf_counter()
     s.check_codec()
     s.check_append()
@@ -3938,6 +4167,8 @@ def main() -> int:
     s.check_skinny()
     s.skinny_sass()
     s.check_attention()
+    s.check_attention_smoke_layout()
+    s.check_attention_bad_entries()
     log(f"[phase] kernel checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     s.time_kernels()

@@ -1,19 +1,24 @@
 // K7-K9: flash attention over a contiguous KV cache: the forward with the
 // row log-sum-exp (K7, also launched by K14), and the two passes of its
 // backward, dQ (K8) and dK/dV (K9).  The training forward and backward of
-// every attention layer.
+// every attention layer.  K4, the paged prefill of serving, is K7's
+// forward reading its keys through the page table.
 //
 // K7 replaces repro/kernels/flash_attention.py::flash_prefill_contiguous
-// (:332; pallas_call :404, body _prefill_body :153, return_lse).  K8
+// (:332; pallas_call :404, body _prefill_body :153, return_lse); K4
+// (flash_fwd_paged_kernel) ::paged_flash_prefill (:259; pallas_call :316,
+// the same body over the paged pool).  K8
 // replaces the dQ pass of ::flash_prefill_bwd_contiguous (:552; pallas_call
 // :598, body _prefill_bwd_dq_body :448) and K9 its dK/dV pass (pallas_call
 // :626, body _prefill_bwd_dkv_body :497), both with _bwd_probs' masks.
 //
 // Layout: q, o, dO [B, H, Sq, D] f32; k, v [B, n_kv, Skv, D] (f32, or
-// int8/int16 posit for K7 and K8); lse and delta [B, H, Sq] f32; kv_len and
-// q_offset [B] int32.  Query row r of sequence b sits at position
-// q_offset[b] + r and sees key positions kpos < kv_len[b], kpos <= qpos
-// when causal, qpos - kpos < window when window > 0.  GQA: query head hq
+// int8/int16 posit for K7 and K8; K4: page pools [num_pages, n_kv, page, D]
+// with page_table [B, W], Skv = W page); lse and delta [B, H, Sq] f32;
+// kv_len (K4: seq_lens) and q_offset [B] int32.  Query row r of sequence
+// b sits at position q_offset[b] + r and sees key positions kpos <
+// kv_len[b], kpos <= qpos when causal, qpos - kpos < window when window >
+// 0.  GQA: query head hq
 // reads kv head hq / G, G = H / n_kv.  Scores are q.k * D^-0.5, then
 // tanh-capped when softcap > 0.
 //
@@ -45,6 +50,18 @@
 //     between the two products, inside the warp that owns its rows.  Only
 //     key tiles some row may see are visited, and per-element masks run
 //     only on edge tiles.  One block barrier per K/V tile.
+//   K4: K7's body (fwd_tile) with the row address of the staging a
+//     template parameter: key j at row j % page of page table[b, j / page]
+//     (PagedRows) instead of row (b n_kv + h) Skv + j (ContigRows, whose
+//     instances compile to the code they had before).  The staging zeroes,
+//     and never reads, keys below the block's lowest visible key (q_first -
+//     window + 1), at or past kv_hi, or on an entry outside the pool: a
+//     reclaimed window's garbage page (NaR patterns) never meets P = 0 in
+//     O += P V.  A visible key on an entry outside the pool is masked from
+//     the scores too (in the paged instance only), as K3 skips it.  A
+//     decode step with a softcap (Sq = 1) is one G-row tile.
+//     Bound as K7's: at smollm-360m's prefill layer (8 x 128 queries over
+//     up to 512 keys) 4 G D flops a visible pair, 15 us of FFMA.
 //   K8: K7's block, rows, staging and barrier, with dO beside Q in shared
 //     memory for the whole sweep and lse and delta of each thread's 4 rows
 //     in registers.  Per K/V tile: S = Q K^T and dP = dO V^T as 4 x BN/16
@@ -250,38 +267,98 @@ __device__ __forceinline__ float4 decode4(unsigned r, int n, int es) {
                      posit_decode(static_cast<int32_t>(r >> 24), n, es));
 }
 
-// K/V staging of K7 and K8: tile rows [j0, j0 + BN) of kv head row
-// kvrow0 (row strides ldk and ldv in shared memory), keys at or past kv_hi
-// zero.  Chunk c (4 values) is key c / D4, columns 4 (c % D4).  f32 goes
-// by cp.async; posit is loaded raw into registers (fwd_load_raw) and
-// decoded into shared memory later (fwd_store_raw).
-template <int BN>
+// Where key j of the block's kv head lives, in rows of D elements (the
+// row address of the K/V staging): K7's contiguous cache, row0 + j ...
+struct ContigRows {
+  static constexpr bool kPaged = false;
+  struct Args {};
+  size_t row0;
+  static __device__ __forceinline__ ContigRows make(const Args&, int b,
+                                                    int h, int n_kv,
+                                                    int Skv) {
+    return {(static_cast<size_t>(b) * n_kv + h) * Skv};
+  }
+  __device__ __forceinline__ void from(int) {}
+  __device__ __forceinline__ bool has(int) const { return true; }
+  // the row of key j if ok, else a row that exists
+  __device__ __forceinline__ size_t row(bool ok, int j) const {
+    return row0 + (ok ? j : 0);
+  }
+};
+
+// ... or K4's page pool [num_pages, n_kv, page, D] through the sequence's
+// row of the page table: key j is row j % page of page table[j / page].
+// Keys below lo (the block's lowest visible key) and keys on an entry
+// outside [0, num_pages) are never read: they stage as zeros, so the
+// garbage page behind a reclaimed window (NaR patterns) never meets a
+// zero probability.  A visible key on such an entry is dropped from the
+// softmax too (`pooled`, in the score mask), as K3 drops it.
+struct PagedRows {
+  static constexpr bool kPaged = true;
+  struct Args {
+    const int* table;                            // [B, W]
+    int W, page, num_pages;
+  };
+  const int* table;
+  int page, n_kv, h, num_pages, lim, lo;
+  static __device__ __forceinline__ PagedRows make(const Args& a, int b,
+                                                   int h, int n_kv,
+                                                   int Skv) {
+    return {a.table + static_cast<size_t>(b) * a.W, a.page, n_kv, h,
+            a.num_pages, Skv, 0};
+  }
+  // the block's lowest visible key
+  __device__ __forceinline__ void from(int kv_lo) { lo = kv_lo; }
+  // key j (< W page) lies on a page of the pool
+  __device__ __forceinline__ bool pooled(int j) const {
+    if (j >= lim) return false;
+    const int pg = __ldg(table + j / page);
+    return pg >= 0 && pg < num_pages;
+  }
+  __device__ __forceinline__ bool has(int j) const {
+    return j >= lo && pooled(j);
+  }
+  __device__ __forceinline__ size_t row(bool ok, int j) const {
+    if (!ok) return 0;
+    const int pg = __ldg(table + j / page);
+    return (static_cast<size_t>(pg) * n_kv + h) * page + j % page;
+  }
+};
+
+// K/V staging of K7, K8 and K4: tile rows [j0, j0 + BN) of the block's kv
+// head, addressed by `rows` (row strides ldk and ldv in shared memory),
+// keys at or past kv_hi (and those `rows` does not have) zero.  Chunk c
+// (4 values) is key c / D4, columns 4 (c % D4).  f32 goes by cp.async;
+// posit is loaded raw into registers (fwd_load_raw) and decoded into
+// shared memory later (fwd_store_raw).
+template <int BN, typename RW>
 __device__ __forceinline__ void fwd_copy_f32(float* ks, float* vs,
                                              const float* k, const float* v,
-                                             size_t kvrow0, int j0, int kv_hi,
-                                             int D, int ldk, int ldv) {
+                                             const RW& rows, int j0,
+                                             int kv_hi, int D, int ldk,
+                                             int ldv) {
   const int D4 = D / 4;
   for (int c = threadIdx.x; c < BN * D4; c += FT) {
     const int p = c / D4, d4 = c - p * D4;
-    const bool ok = j0 + p < kv_hi;
-    const size_t src = (kvrow0 + (ok ? j0 + p : 0)) * D + 4 * d4;
+    const bool ok = j0 + p < kv_hi && rows.has(j0 + p);
+    const size_t src = rows.row(ok, j0 + p) * D + 4 * d4;
     cp_async16(ks + p * ldk + 4 * d4, k + src, ok);
     cp_async16(vs + p * ldv + 4 * d4, v + src, ok);
   }
 }
 
-template <typename T, int BN, int CH>
+template <typename T, int BN, int CH, typename RW>
 __device__ __forceinline__ void fwd_load_raw(
     typename Raw4<T>::type (&kr)[CH], typename Raw4<T>::type (&vr)[CH],
-    const T* k, const T* v, size_t kvrow0, int j0, int kv_hi, int D) {
+    const T* k, const T* v, const RW& rows, int j0, int kv_hi, int D) {
   using R = typename Raw4<T>::type;
   const int D4 = D / 4;
 #pragma unroll
   for (int cc = 0; cc < CH; ++cc) {
     const int c = threadIdx.x + cc * FT;
     const int p = c / D4, d4 = c - p * D4;
-    const bool ok = c < BN * D4 && j0 + p < kv_hi;
-    const size_t src = (kvrow0 + (ok ? j0 + p : 0)) * D + 4 * d4;
+    const bool ok = c < BN * D4 && j0 + p < kv_hi && rows.has(j0 + p);
+    const size_t src = rows.row(ok, j0 + p) * D + 4 * d4;
     kr[cc] = ok ? *reinterpret_cast<const R*>(k + src) : R{};
     vr[cc] = ok ? *reinterpret_cast<const R*>(v + src) : R{};
   }
@@ -312,14 +389,16 @@ __device__ __forceinline__ void fwd_store_raw(
 // block barrier per K/V tile: the copy of tile t+1 starts right after it
 // and runs under tile t's arithmetic (posit tiles are loaded raw into
 // registers there and decoded into shared memory after it).
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
-    flash_fwd_kernel(
+// The body of K7's two kernels: flash_fwd_kernel (contiguous rows) and
+// flash_fwd_paged_kernel (K4: rows through the page table, Skv = W page).
+template <typename T, int DMAX, typename RW>
+__device__ __forceinline__ void fwd_tile(
     const float* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ kv_len,
     const int* __restrict__ q_offset, float* __restrict__ out,
     float* __restrict__ lse, int H, int n_kv, int Sq, int Skv, int D,
-    int causal, int window, float softcap, float scale, int n, int es) {
+    int causal, int window, float softcap, float scale, int n, int es,
+    const typename RW::Args& ra) {
   using F = FwdTile<DMAX>;
   constexpr int RM = F::RM, BM = F::BM, BN = F::BN, LDP = F::LDP;
   constexpr int RN = BN / 16;                    // keys per thread (S)
@@ -342,7 +421,7 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
   const int qo = q_offset[b];
   const int kl = min(kv_len[b], Skv);
   const size_t qrow0 = (static_cast<size_t>(b) * H + h * G) * Sq;
-  const size_t kvrow0 = (static_cast<size_t>(b) * n_kv + h) * Skv;
+  RW rows = RW::make(ra, b, h, n_kv, Skv);
 
   // the Q tile: flat row i -> head h*G + i % G, query row i / G
   for (int c = tid; c < BM * D4; c += FT) {
@@ -360,6 +439,7 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
   tile_keys(q_first, q_last, kl, causal, window, &kv_lo, &kv_hi);
   const int j_start = (kv_lo / BN) * BN;
   const int n_tiles = kv_hi > j_start ? (kv_hi - j_start + BN - 1) / BN : 0;
+  rows.from(kv_lo);
 
   typename Raw4<T>::type k_raw[kF32 ? 1 : CH], v_raw[kF32 ? 1 : CH];
   float acc[RM][NC][4];
@@ -376,9 +456,9 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
 
   if (n_tiles > 0) {
     if constexpr (kF32) {
-      fwd_copy_f32<BN>(k_s, v_s, k, v, kvrow0, j_start, kv_hi, D, ldk, D);
+      fwd_copy_f32<BN>(k_s, v_s, k, v, rows, j_start, kv_hi, D, ldk, D);
     } else {
-      fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j_start, kv_hi, D);
+      fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, rows, j_start, kv_hi, D);
       fwd_store_raw<T, BN, CH>(k_s, v_s, k_raw, v_raw, D, ldk, D, n, es);
     }
   }
@@ -392,9 +472,9 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
     if (more) {
       if constexpr (kF32)
         fwd_copy_f32<BN>(k_s + nb * BN * ldk, v_s + nb * BN * D, k, v,
-                         kvrow0, j0 + BN, kv_hi, D, ldk, D);
+                         rows, j0 + BN, kv_hi, D, ldk, D);
       else
-        fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j0 + BN, kv_hi,
+        fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, rows, j0 + BN, kv_hi,
                                 D);
     }
     cp_async_commit();
@@ -421,10 +501,16 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
       }
     }
 
-    // masks (edge tiles only), online softmax, P^T into shared memory
+    // masks (edge tiles only, and K4's keys on an entry outside the
+    // pool), online softmax, P^T into shared memory
     const bool full = j0 + BN <= kl && i0 + BM <= nrows &&
                       (!causal || j0 + BN - 1 <= q_first) &&
                       (window <= 0 || q_last - j0 < window);
+    bool pool[RN];
+    if constexpr (RW::kPaged) {
+#pragma unroll
+      for (int c = 0; c < RN; ++c) pool[c] = rows.pooled(j0 + tx + 16 * c);
+    }
 #pragma unroll
     for (int a = 0; a < RM; ++a) {
       const int i = i0 + ty * RM + a;
@@ -437,6 +523,7 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
         s[a][c] = cap_score(s[a][c], scale, softcap, &dcap);
         ok[c] = full || (i < nrows && visible(j0 + tx + 16 * c, qpos, kl,
                                               causal, window));
+        if constexpr (RW::kPaged) ok[c] = ok[c] && pool[c];
         if (ok[c]) mx = fmaxf(mx, s[a][c]);
       }
 #pragma unroll
@@ -526,6 +613,34 @@ __global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
   }
 }
 
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
+    flash_fwd_kernel(
+    const float* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const int* __restrict__ kv_len,
+    const int* __restrict__ q_offset, float* __restrict__ out,
+    float* __restrict__ lse, int H, int n_kv, int Sq, int Skv, int D,
+    int causal, int window, float softcap, float scale, int n, int es) {
+  fwd_tile<T, DMAX, ContigRows>(q, k, v, kv_len, q_offset, out, lse, H, n_kv,
+                                Sq, Skv, D, causal, window, softcap, scale, n,
+                                es, ContigRows::Args{});
+}
+
+// K4: k, v are the page pools [num_pages, n_kv, page, D]; kv_len the
+// post-append seq_lens; Skv = W * page.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(FT, FwdTile<DMAX>::MIN_BLOCKS)
+    flash_fwd_paged_kernel(
+    const float* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const int* __restrict__ kv_len,
+    const int* __restrict__ q_offset, float* __restrict__ out, int H,
+    int n_kv, int Sq, int D, int causal, int window, float softcap,
+    float scale, int n, int es, PagedRows::Args pa) {
+  fwd_tile<T, DMAX, PagedRows>(q, k, v, kv_len, q_offset, out, nullptr, H,
+                               n_kv, Sq, pa.W * pa.page, D, causal, window,
+                               softcap, scale, n, es, pa);
+}
+
 // ---- K8: dQ --------------------------------------------------------------
 // Shared memory: q and dO [BM][D] each, k and v [2][BN][pad_ld(D)] each,
 // dS^T [BN][LDS].  Thread (ty, tx) owns flat rows ty*RM .. ty*RM + RM-1
@@ -603,9 +718,11 @@ __global__ void __launch_bounds__(FT, DqTile<DMAX>::MIN_BLOCKS)
 
   if (n_tiles > 0) {
     if constexpr (kF32) {
-      fwd_copy_f32<BN>(k_s, v_s, k, v, kvrow0, j_start, kv_hi, D, ldk, ldk);
+      fwd_copy_f32<BN>(k_s, v_s, k, v, ContigRows{kvrow0}, j_start, kv_hi,
+                       D, ldk, ldk);
     } else {
-      fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j_start, kv_hi, D);
+      fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, ContigRows{kvrow0}, j_start,
+                              kv_hi, D);
       fwd_store_raw<T, BN, CH>(k_s, v_s, k_raw, v_raw, D, ldk, ldk, n, es);
     }
   }
@@ -619,10 +736,10 @@ __global__ void __launch_bounds__(FT, DqTile<DMAX>::MIN_BLOCKS)
     if (more) {
       if constexpr (kF32)
         fwd_copy_f32<BN>(k_s + nb * BN * ldk, v_s + nb * BN * ldk, k, v,
-                         kvrow0, j0 + BN, kv_hi, D, ldk, ldk);
+                         ContigRows{kvrow0}, j0 + BN, kv_hi, D, ldk, ldk);
       else
-        fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, kvrow0, j0 + BN, kv_hi,
-                                D);
+        fwd_load_raw<T, BN, CH>(k_raw, v_raw, k, v, ContigRows{kvrow0},
+                                j0 + BN, kv_hi, D);
     }
     cp_async_commit();
     const float* ks = k_s + (t & 1) * BN * ldk;
@@ -966,13 +1083,22 @@ __global__ void __launch_bounds__(DkvTile<DMAX>::NT, 1) flash_bwd_dkv_kernel(
   }
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in per kernel.
+// Dynamic shared memory above 48 KB needs an opt-in per kernel and device.
+// `opted` (one per kernel instance: a static of its launcher) remembers, per
+// device, the bytes the instance was opted into, so the attribute is set
+// once and not on every launch.
 template <typename K>
-cudaError_t allow_shmem(K kernel, size_t bytes) {
+cudaError_t allow_shmem(K kernel, size_t bytes, size_t (&opted)[16]) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 16 && bytes <= opted[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e == cudaSuccess && dev < 16) opted[dev] = bytes;
+  return e;
 }
 
 struct Args {
@@ -998,13 +1124,42 @@ int launch_fwd(const Args& a, int threads, size_t shmem, cudaStream_t st) {
   const int G = a.H / a.n_kv;
   constexpr int BM = FwdTile<DMAX>::BM;
   dim3 grid((G * a.Sq + BM - 1) / BM, a.n_kv, a.B);
-  cudaError_t e = allow_shmem(flash_fwd_kernel<T, DMAX>, shmem);
+  static size_t opted[16] = {};
+  cudaError_t e = allow_shmem(flash_fwd_kernel<T, DMAX>, shmem, opted);
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_fwd_kernel<T, DMAX><<<grid, FT, shmem, st>>>(
       a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.kv_len,
       a.q_offset, a.out, a.lse_out, a.H, a.n_kv, a.Sq, a.Skv, a.D, a.causal,
       a.window, a.softcap, a.scale, a.n, a.es);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4: K7's forward over the page pool (a.k, a.v), a.kv_len = seq_lens.
+template <typename T, int DMAX>
+int launch_paged(const Args& a, const PagedRows::Args& pa, int threads,
+                 size_t shmem, cudaStream_t st) {
+  if (threads != FT || shmem != fwd_shmem<DMAX>(a.D))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int G = a.H / a.n_kv;
+  constexpr int BM = FwdTile<DMAX>::BM;
+  dim3 grid((G * a.Sq + BM - 1) / BM, a.n_kv, a.B);
+  static size_t opted[16] = {};
+  cudaError_t e = allow_shmem(flash_fwd_paged_kernel<T, DMAX>, shmem, opted);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_fwd_paged_kernel<T, DMAX><<<grid, FT, shmem, st>>>(
+      a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.kv_len,
+      a.q_offset, a.out, a.H, a.n_kv, a.Sq, a.D, a.causal, a.window,
+      a.softcap, a.scale, a.n, a.es, pa);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_paged(const Args& a, const PagedRows::Args& pa, int threads,
+                   size_t shmem, cudaStream_t st) {
+  if (a.D <= 64) return launch_paged<T, 64>(a, pa, threads, shmem, st);
+  if (a.D <= 128) return launch_paged<T, 128>(a, pa, threads, shmem, st);
+  if (a.D <= 256) return launch_paged<T, 256>(a, pa, threads, shmem, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -1022,7 +1177,8 @@ int launch_dq(const Args& a, int threads, size_t shmem, cudaStream_t st) {
   const int G = a.H / a.n_kv;
   constexpr int BM = DqTile<DMAX>::BM;
   dim3 grid((G * a.Sq + BM - 1) / BM, a.n_kv, a.B);
-  cudaError_t e = allow_shmem(flash_bwd_dq_kernel<T, DMAX>, shmem);
+  static size_t opted[16] = {};
+  cudaError_t e = allow_shmem(flash_bwd_dq_kernel<T, DMAX>, shmem, opted);
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_bwd_dq_kernel<T, DMAX><<<grid, FT, shmem, st>>>(
       a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.dout,
@@ -1050,7 +1206,8 @@ int launch_dkv(const Args& a, float* dk, float* dv, int threads,
                size_t shmem, cudaStream_t st) {
   if (threads != DkvTile<DMAX>::NT || shmem != dkv_shmem<DMAX>(a.D))
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t e = allow_shmem(flash_bwd_dkv_kernel<DMAX>, shmem);
+  static size_t opted[16] = {};
+  cudaError_t e = allow_shmem(flash_bwd_dkv_kernel<DMAX>, shmem, opted);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.Skv + BKV - 1) / BKV, a.n_kv, a.B);
   flash_bwd_dkv_kernel<DMAX><<<grid, threads, shmem, st>>>(
@@ -1084,6 +1241,35 @@ extern "C" int flash_prefill_fwd(const void* q, const void* k, const void* v,
   if (dtype == DT_F32) return dispatch_fwd<float>(a, threads, sh, st);
   if (dtype == DT_I8) return dispatch_fwd<int8_t>(a, threads, sh, st);
   if (dtype == DT_I16) return dispatch_fwd<int16_t>(a, threads, sh, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K4.  q [B,H,Sq,D] over the page pools k_pages, v_pages [num_pages, n_kv,
+// page, D] through page_table [B, W] -> out [B,H,Sq,D]: K7's forward with
+// key j of sequence b at row j % page of page page_table[b, j / page],
+// kv_len = seq_lens (post-append) and no lse.  dtype, threads and shmem as
+// for K7 (the geometry of K7 at D).
+extern "C" int flash_prefill_paged_fwd(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_table, const void* seq_lens, const void* q_offset,
+    void* out, int B, int H, int n_kv, int Sq, int page, int D, int W,
+    int num_pages, int causal, int window, float softcap, float scale,
+    int dtype, int n, int es, int threads, int shmem, void* stream) {
+  Args a{static_cast<const float*>(q), k_pages, v_pages, nullptr, nullptr,
+         nullptr, static_cast<const int*>(seq_lens),
+         static_cast<const int*>(q_offset), static_cast<float*>(out), nullptr,
+         B, H, n_kv, Sq, W * page, D, causal, window, softcap, scale, n, es};
+  if (B <= 0 || Sq <= 0) return 0;
+  if (int e = check_args(a)) return e;
+  if (page <= 0 || W <= 0 || num_pages <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PagedRows::Args pa{static_cast<const int*>(page_table), W, page,
+                           num_pages};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t sh = static_cast<size_t>(shmem);
+  if (dtype == DT_F32) return dispatch_paged<float>(a, pa, threads, sh, st);
+  if (dtype == DT_I8) return dispatch_paged<int8_t>(a, pa, threads, sh, st);
+  if (dtype == DT_I16) return dispatch_paged<int16_t>(a, pa, threads, sh, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -49,15 +49,14 @@ SIGNATURES = {
                          _P),
     },
     "paged_attention": {
-        "posit_paged_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _I, _I, _I, _P),
-        "posit_paged_prefill": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-                                _P),
+        "posit_paged_decode": (_P,) * 6 + (_I,) * 8 + (_F,) + (_I,) * 5
+        + (_P,),
     },
     "flash_prefill": {
         "flash_prefill_fwd": (_P,) * 7 + (_I,) * 8 + (_F, _F) + (_I,) * 5
         + (_P,),
+        "flash_prefill_paged_fwd": (_P,) * 7 + (_I,) * 10 + (_F, _F)
+        + (_I,) * 5 + (_P,),
         "flash_prefill_bwd_dq": (_P,) * 9 + (_I,) * 8 + (_F, _F) + (_I,) * 5
         + (_P,),
         "flash_prefill_bwd_dkv": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _I,

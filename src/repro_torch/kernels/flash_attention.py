@@ -1,5 +1,5 @@
-"""K3/K4: paged decode and paged prefill attention
-(``csrc/paged_attention.cu``); K7-K9: the contiguous flash prefill with its
+"""K3: paged decode attention (``csrc/paged_attention.cu``); K4: paged
+prefill attention, K7-K9: the contiguous flash prefill with its
 log-sum-exp and its backward, and K14, the [BH, Sq, D] attention
 (``csrc/flash_prefill.cu``).
 
@@ -11,13 +11,25 @@ paged_flash_decode`` (:650), `paged_flash_prefill` replaces
 separately counted `flash_prefill_bwd_dq` and `flash_prefill_bwd_dkv`.
 `flash_attention` (K14) replaces ``::flash_attention`` (:710; pallas_call
 at :738): the same function as K7 with one kv head per query head,
-kv_len = Skv and q_offset = Skv - Sq, so it launches K7's forward.  Rows
-that see no key
+kv_len = Skv and q_offset = Skv - Sq, so it launches K7's forward.
+
+K3 splits each (sequence, kv head) into `decode_plan(...).splits`
+contiguous ranges of the page table's pages, one block each, chosen from
+host-known shapes only (never seq_lens) to fill the card; the block
+streams its keys through a cp.async ring, warps on keys and lanes on
+dimensions, and the ranges' partials meet in a thread-block cluster in
+split order (`decode_plan` mirrors the source's plan; the C entry refuses
+any other).  K4 is K7's register-tiled forward reading its keys through
+the page table (`flash_fwd_paged_kernel`): 64 flat rows of the G heads of
+a kv group a block, K/V tiles double-buffered, keys below the block's
+window, past seq_lens or on an entry outside the pool staged as zeros,
+so its geometry is `flash_geometry("fwd", D)`.  Rows that see no key
 (l == 0) come back 0 from the kernels; the paged plain versions keep the
 reference's -1e30 masking there, the contiguous ones give 0 as well.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -26,7 +38,70 @@ from repro_torch.core.types import PositConfig
 from repro_torch.kernels import build, ref
 
 _MAX_SHARED = 232448          # a block's dynamic shared memory (opted in)
-_SPLIT_NS, _SPLIT_THREADS = 4, 256   # K4's split form for 128 < D <= 256
+
+# K3's plan constants (csrc/paged_attention.cu, kDec*)
+DEC_THREADS = 256             # a block's threads
+DEC_VPL = 8                   # dimensions a lane holds
+DEC_GH = 4                    # query heads a warp holds, at most
+DEC_STAGES = 3                # ring stages: two in flight
+DEC_STAGE_ELEMS = 4096        # K (and V) elements a stage aims at
+DEC_MAX_SPLIT = 16            # cluster ranks (above 8: non-portable)
+DEC_SMS = 132                 # H100 SXM
+DEC_MAX_G = 32                # query heads a kv head, at most
+
+
+class DecodePlan(NamedTuple):
+    splits: int               # blocks (cluster ranks) a (sequence, kv head)
+    pages_per_split: int      # table pages a split owns, at most
+    stage_pages: int          # pages a ring stage holds
+    head_groups: int          # warps split the G heads into this many
+    streams: int              # (warp, key slot) streams of a head group
+    stream_ml: int            # floats of the streams' m (and l): streams
+                              # G rounded to 4
+    smem: int                 # dynamic shared bytes
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(B: int, n_kv: int, W: int, page: int, D: int, G: int,
+                elem_bytes: int) -> DecodePlan:
+    """K3's launch plan, as ``csrc/paged_attention.cu::make_decode_plan``
+    computes it from host-known shapes: S = min(16, W, ceil(132 / (B
+    n_kv))) ranges of the table's pages, split s owning [s W // S,
+    (s + 1) W // S) (`split_pages`); 256 threads a block; warps in 2^k
+    head groups of at most 4 heads; ring stages of whole pages near 4,096
+    elements of K; shared memory for the table slice, the stages' key
+    masks, the raw ring and, above D = 128, a posit stage decoded once
+    into f32 (or the streams' partials, their m and l each rounded to 4
+    floats so that their acc stays 16-byte aligned, or the cluster's
+    weights, which reuse them), and the block's partial."""
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+    kpw = 32 // (dmax // DEC_VPL)
+    want = max(1, _cdiv(DEC_SMS, max(1, B * n_kv)))
+    splits = min(DEC_MAX_SPLIT, W, want)
+    hg = 1
+    while hg * DEC_GH < G:
+        hg *= 2
+    nks = DEC_THREADS // 32 // hg * kpw
+    psw = _cdiv(nks * G, 4) * 4
+    pps = _cdiv(W, splits)
+    sp = min(pps, max(1, DEC_STAGE_ELEMS // (page * D)))
+    pt_words = _cdiv(pps, 4) * 4
+    mask_words = _cdiv(DEC_STAGES * sp * page, 16) * 4
+    ring = DEC_STAGES * 2 * sp * page * D * elem_bytes // 4
+    # above D = 128 a posit stage is decoded once into f32
+    tile = 0 if elem_bytes == 4 or D <= 128 else 2 * sp * page * D
+    region = max(ring + tile, nks * G * D + 2 * psw, 3 * splits * G + G)
+    smem = 4 * (pt_words + mask_words + region + G * D + 2 * G)
+    return DecodePlan(splits, pps, sp, hg, nks, psw, smem)
+
+
+def split_pages(s: int, splits: int, W: int) -> range:
+    """The page-table columns split s of K3's plan owns."""
+    return range(s * W // splits, (s + 1) * W // splits)
 
 
 def _pool_dtype(k_pages, v_pages, cfg_kv):
@@ -36,6 +111,15 @@ def _pool_dtype(k_pages, v_pages, cfg_kv):
         raise TypeError(f"pages must be {dt} for cfg_kv={cfg_kv}, got "
                         f"{k_pages.dtype}/{v_pages.dtype}")
     return dt
+
+
+def _check_pools(fn, k_pages, v_pages):
+    # the kernels copy page rows 16 bytes at a time; a pool is never copied
+    if k_pages.shape != v_pages.shape or k_pages.ndim != 4:
+        raise ValueError(f"{fn}: k and v pages must be [P, n_kv, page, D] "
+                         f"alike")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{fn}: page pools must be 16-byte aligned")
 
 
 def paged_flash_decode_plain(q, k_pages, v_pages, page_table, seq_lens, *,
@@ -59,23 +143,25 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, seq_lens, *,
                                         window=window)
     lib = build.library("paged_attention")
     dt = _pool_dtype(k_pages, v_pages, cfg_kv)
-    q = q.to(torch.float32).contiguous()
+    q = _aligned(q.to(torch.float32).contiguous())
     page_table = page_table.to(torch.int32).contiguous()
     seq_lens = seq_lens.to(torch.int32).contiguous()
     build.check_cuda_tensors("paged_flash_decode", q, k_pages, v_pages,
                              page_table, seq_lens)
     B, H, D = q.shape
     P, n_kv, page, _ = k_pages.shape
-    G = H // n_kv
-    if H % n_kv or D != k_pages.shape[3]:
-        raise ValueError("paged_flash_decode: head layout does not match "
-                         "the pool")
-    # positions per round: whole pages, ~4096 K elements of shared memory
-    ch = page * max(1, (4096 // D) // page)
-    shmem = 4 * (2 * G * D + ch * (2 * D + 1) + G * ch + 3 * G + ch)
-    if shmem > _MAX_SHARED:
-        raise ValueError(f"paged_flash_decode: {shmem} B of shared memory "
-                         f"exceeds {_MAX_SHARED}")
+    eb = k_pages.element_size()
+    if (H % n_kv or D != k_pages.shape[3] or D % 4 or D > 256
+            or (page * D * eb) % 16 or H // n_kv > DEC_MAX_G):
+        raise ValueError("paged_flash_decode: needs H % n_kv == 0, D % 4 "
+                         "== 0, D <= 256, 16-byte pages and at most "
+                         f"{DEC_MAX_G} query heads per kv head")
+    _check_pools("paged_flash_decode", k_pages, v_pages)
+    W = page_table.shape[1]
+    plan = decode_plan(B, n_kv, W, page, D, H // n_kv, eb)
+    if plan.smem > _MAX_SHARED:
+        raise ValueError(f"paged_flash_decode: {plan.smem} B of shared "
+                         f"memory exceeds {_MAX_SHARED}")
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -83,9 +169,9 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, seq_lens, *,
     rc = lib.posit_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B, H,
-        n_kv, page, D, page_table.shape[1], P,
-        0 if window is None else int(window), ch, float(D ** -0.5),
-        build.DTYPE_CODE[dt], n, es, build.stream(q))
+        n_kv, page, D, W, P, 0 if window is None else int(window),
+        float(D ** -0.5), build.DTYPE_CODE[dt], n, es, plan.splits,
+        plan.smem, build.stream(q))
     paged_flash_decode.launches += 1
     build.check_launch(rc, "posit_paged_decode")
     return out
@@ -114,9 +200,9 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, seq_lens, q_offset,
         return paged_flash_prefill_plain(
             q, k_pages, v_pages, page_table, seq_lens, q_offset,
             cfg_kv=cfg_kv, causal=causal, window=window, softcap=softcap)
-    lib = build.library("paged_attention")
+    lib = build.library("flash_prefill")
     dt = _pool_dtype(k_pages, v_pages, cfg_kv)
-    q = q.to(torch.float32).contiguous()
+    q = _aligned(q.to(torch.float32).contiguous())
     page_table = page_table.to(torch.int32).contiguous()
     seq_lens = seq_lens.to(torch.int32).contiguous()
     q_offset = q_offset.to(torch.int32).contiguous()
@@ -124,33 +210,24 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, seq_lens, q_offset,
                              page_table, seq_lens, q_offset)
     B, H, Sq, D = q.shape
     P, n_kv, page, _ = k_pages.shape
-    G = H // n_kv
-    if (H % n_kv or D != k_pages.shape[3] or D > 256 or G > 32
-            or (D > 128 and G * _SPLIT_NS > _SPLIT_THREADS)):
-        raise ValueError("paged_flash_prefill: needs H % n_kv == 0, "
-                         "D <= 256 and at most 32 query heads per kv head "
-                         "(16 above D = 128)")
-    if D <= 128:
-        threads = G * 32
-    else:
-        threads = G * _SPLIT_NS * (_SPLIT_THREADS // (G * _SPLIT_NS))
-    shmem = 4 * (2 * page * D + page * threads)
-    if shmem > _MAX_SHARED:
-        raise ValueError(f"paged_flash_prefill: {shmem} B of shared memory "
-                         f"exceeds {_MAX_SHARED}")
+    if H % n_kv or D != k_pages.shape[3] or D % 4 or D > _MAX_D:
+        raise ValueError("paged_flash_prefill: needs H % n_kv == 0, D % 4 "
+                         f"== 0 and D <= {_MAX_D}")
+    _check_pools("paged_flash_prefill", k_pages, v_pages)
+    geo = flash_geometry("fwd", D)
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
     n, es = (cfg_kv.n, cfg_kv.es) if cfg_kv is not None else (0, 0)
-    rc = lib.posit_paged_prefill(
+    rc = lib.flash_prefill_paged_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), q_offset.data_ptr(),
         out.data_ptr(), B, H, n_kv, Sq, page, D, page_table.shape[1], P,
-        int(causal), 0 if window is None else int(window),
-        0.0 if softcap is None else float(softcap), float(D ** -0.5),
-        build.DTYPE_CODE[dt], n, es, build.stream(q))
+        int(causal), _window(window), _softcap(softcap), float(D ** -0.5),
+        build.DTYPE_CODE[dt], n, es, geo.threads, geo.shmem,
+        build.stream(q))
     paged_flash_prefill.launches += 1
-    build.check_launch(rc, "posit_paged_prefill")
+    build.check_launch(rc, "flash_prefill_paged_fwd")
     return out
 
 
