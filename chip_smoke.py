@@ -6,6 +6,8 @@
     python3 chip_smoke.py --skinny-times [--src DIR]
     python3 chip_smoke.py --grouped-times [--src DIR]
     python3 chip_smoke.py --paged-times [--src DIR]
+    python3 chip_smoke.py --scan-times [--src DIR]
+    python3 chip_smoke.py --prefill-traces [--src DIR]
     python3 chip_smoke.py --flash-sass DIR
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -15,7 +17,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    and ptxas's registers of every instance of the tiled posit GEMM and its
    split-K reduce, of the grouped GEMM's decode and tiled forms and its dW
    (K10, K11) and of the flash kernels (K7, K8, K9), none of which may
-   spill, nor may the paged decode (K3) or K7's paged instance (K4);
+   spill, nor may the paged decode (K3), K7's paged instance (K4) or the
+   scans (K12, K13);
 2. every kernel against its plain PyTorch version on the card, at the
    shapes of full-width smollm-360m, for posit16, posit8 and float pages:
    the codec bit-exact (exhaustive decode, encode over an f32 sweep), the
@@ -104,11 +107,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    comparison); then `train_loop` at depth 4 of 16 for 8 posit16 steps
    of 8 x 512 tokens (counted, with a profiled step) and one depth-2
    step repeated from the same state, bit-identical;
-7. the recurrent and hybrid serving path: (a) the WKV scan (K12) and the
+7. the recurrent and hybrid serving path: (a) the scans' direct posit
+   round trip against posit_decode(posit_encode()) over all 2^32 f32
+   patterns (P16_2 and P8_2 compiled for their format, and at run time
+   with five more formats); the WKV scan (K12) and the
    RG-LRU scan (K13) against their plain versions at rwkv6-3b's and
-   recurrentgemma-9b's serving shapes (T = 1 and 128; posit16, posit8,
-   round-tripped f32 and f32 state; ragged num_new with a 0): final state
-   and K13's outputs bit-identical, K12's y within the f32 bound; the paged
+   recurrentgemma-9b's serving shapes (T = 1, 37, 128 and 130, the odd
+   ones leaving a partial staging chunk; posit16, posit8, round-tripped
+   f32 and f32 state; ragged num_new with a 0), and their generic paths
+   (K12 at head_dim 18 and on misaligned inputs, K13 at width 4,097 and
+   misaligned): final state and K13's outputs bit-identical, K12's y
+   within the f32 bound, every launch repeated bit-identical; the paged
    attention (K3/K4) at head_dim 256 with 16 query heads per kv head,
    window 2,048 and the pages before it reclaimed to a garbage page of NaR
    patterns, every launch repeated bit-identical; the [BH, Sq, D]
@@ -119,7 +128,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    and depth from posit16 weights, KV and state pools, 16 requests (and
    two 2,176-token prompts past recurrentgemma's window) through
    PagedServingEngine, counted as in phase 3, each with a profiled decode
-   window; (c) logits at full width (rwkv6 depth 2, recurrentgemma depth
+   window and a profiled prefill step (8 x 128 tokens, device time by
+   kernel); (c) logits at full width (rwkv6 depth 2, recurrentgemma depth
    3) on the card against the CPU, with the state patterns that differ
    (rwkv6's whole-model number reported only), and rwkv6 layer by layer:
    the CPU runs each layer from the card's own inputs and state patterns,
@@ -139,7 +149,12 @@ commit's kernel under the same harness; ``--grouped-times`` does the same
 for K10 and K11 at olmoe-1b-7b's decode, prefill and training shapes
 (without the plain versions); ``--paged-times`` for K3 and K4 at
 smollm-360m's and recurrentgemma-9b's layers beside SDPA (another commit's
-kernels through that commit's own wrappers with ``--src``).
+kernels through that commit's own wrappers with ``--src``);
+``--scan-times`` for K12 and K13 at a decode step's and a prefill chunk's
+shapes of rwkv6-3b and recurrentgemma-9b (with ``--src``, another
+commit's kernels through its own wrappers); ``--prefill-traces`` runs
+only the profiled prefill steps of those two models (with ``--src``,
+another commit's kernels and engine).
 ``--flash-sass DIR`` compares the SASS of the contiguous flash kernels (K7
 and K14, K8, K9) with those of another tree's unpacked ``src/`` (exit 1 if
 an instance differs).
@@ -186,6 +201,13 @@ L2_BYTES = 50 * 2 ** 20
 ITERS = 50               # timed calls per kernel measurement
 SLEEP_CYCLES = 60_000_000  # ~30 ms at H100 clocks: covers host queuing
 HOST_GAPS: list[str] = []  # measurements whose queuing outlasted the sleep
+# K12's issue-rate estimate: warp instructions a state element and token on
+# its fast path, counted in the SASS of the P16_2 instance's token loop
+# (`cuobjdump -sass`): the y FFMA, two FMUL and an FADD of the update, 11
+# integer operations and 2 FADD of the direct round trip, 4 of its branch;
+# issued by 4 schedulers an SM at the card's top SM clock.  An estimate of
+# the kernel's own code, not a bound on the work.
+K12_INSTR_PER_ELEMENT = 21
 
 
 def log(msg: str) -> None:
@@ -2240,6 +2262,95 @@ class Smoke:
         for k, v in trace["top_kernels_ms_per_step"].items():
             log(f"[trace]   {v:8.3f} ms/step  {k}")
 
+    def trace_prefill(self, qparams, cfg, reqs, key):
+        """One prefill step of 8 x 128 prompt tokens outside the counted
+        run: 8 slots given 512-token prompts, the first chunk a warm step,
+        the second timed on the host clock, the third under torch.profiler.
+        Reports its wall time, device time by kernel and busy share, and
+        the scans' (K12, K13) share of the device time."""
+        torch = self.torch
+        import numpy as np
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.serving.engine import PagedServingEngine
+        eng = PagedServingEngine(qparams, cfg, max_seqs=8, page_size=16,
+                                 prefill_chunk=128,
+                                 table_width=-(-(512 + 4) // 16),
+                                 device="cuda")
+        long = [p for p, _ in reqs if len(p) >= 512][:8]
+        long += [p for p, _ in reqs if len(p) < 512][:8 - len(long)]
+        for prompt in long:
+            eng.submit(np.resize(prompt, 512), 4)
+        eng.step()                                # the warm prefill step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if eng.counters["prefill_steps"] != 3:
+            raise AssertionError(f"trace_prefill {cfg.name}: "
+                                 f"{eng.counters['prefill_steps']} prefill "
+                                 f"steps of 3")
+        by_name = device_time_by_kernel(torch, prof)
+        busy_ms = sum(v[0] for v in by_name.values()) / 1e3
+        scans = {k: v[0] / 1e3 for k, v in by_name.items()
+                 if k in ("wkv_scan_kernel", "rglru_scan_kernel")}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        trace = {"rows": 8 * 128, "wall_ms": wall_ms,
+                 "unprofiled_wall_ms": plain_wall_ms,
+                 "device_busy_ms": busy_ms,
+                 "device_busy_share_unprofiled":
+                     busy_ms / plain_wall_ms if busy_ms else None,
+                 "device_launches": sum(v[1] for v in by_name.values()),
+                 "scan_ms": scans,
+                 "top_kernels_ms": {k: v[0] / 1e3 for k, v in top},
+                 "top_kernels_launches": {k: v[1] for k, v in top}}
+        self.details[key] = trace
+        if not busy_ms:
+            log("[trace] the profiler saw no device time: prefill breakdown "
+                "not measured")
+            return
+        log(f"[trace] {cfg.name} prefill step (8 x 128 tokens) under "
+            f"torch.profiler: wall {wall_ms:.2f} ms, device busy "
+            f"{busy_ms:.2f} ms (of the {plain_wall_ms:.2f} ms unprofiled "
+            f"step just before: {trace['device_busy_share_unprofiled']:.3f})"
+            f", {trace['device_launches']} device kernels; scans "
+            f"{json.dumps(scans)} ({self.details['gpu']})")
+        for k, v in trace["top_kernels_ms"].items():
+            log(f"[trace]   {v:8.3f} ms  {trace['top_kernels_launches'][k]:5d}"
+                f" x  {k}")
+
+    def prefill_traces(self, archs=("rwkv6-3b", "recurrentgemma-9b")):
+        """`trace_prefill` alone for each of `archs` at full width, from
+        the port's seeded init post-training quantized to posit16, without
+        the counted drain."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.core.types import P16_2
+        from repro_torch.models.transformer import init_params
+        from repro_torch.quant.policy import PositPolicy
+        from repro_torch.quant.ptq import quantize_for_serving
+        for arch in archs:
+            cfg = configs.get_config(arch, policy=PositPolicy(
+                weights=P16_2, kv_cache=P16_2))
+            params = init_params(cfg, seed=0, device=self.dev)
+            qparams = quantize_for_serving(params, P16_2)
+            del params
+            torch.cuda.empty_cache()
+            rng = np.random.default_rng(1)
+            reqs = [(rng.integers(0, cfg.vocab, 512).astype(np.int32), 4)
+                    for _ in range(8)]
+            self.trace_prefill(qparams, cfg, reqs,
+                               key=f"{arch}_prefill_trace")
+            del qparams
+            torch.cuda.empty_cache()
+
     def check_logits(self, qparams, cfg, reqs):
         """The kernel path's logits against the plain path's on the CPU,
         same weights: a 16-token prefill, then one decode step on the
@@ -3223,58 +3334,135 @@ class Smoke:
         u = self.randn(H, dh)
         return r, k, v, logw, u
 
-    def check_recurrent_kernels(self):
-        """K12 and K13 against their plain versions at the serving shapes
-        (rwkv6-3b: B = 8, H = 40, dh = 64; recurrentgemma-9b: B = 8, d =
-        4,096), T = 1 and 128, for posit16, posit8, f32 round-tripped
-        through posit16 and plain f32 state, ragged num_new with a 0: the
-        final state bit-identical, K13's h sequence bit-identical, K12's y
-        within the f32 bound of `_wkv_y_bound`; the idle slot's bits come
-        back as they went in.  u, w_lora_b's product (logw) and the state
-        are drawn from a seeded normal: the reference's init zeroes u and
-        the decay LoRA."""
+    def check_round_trip(self):
+        """The scans' direct round trip (csrc/recurrent_scan.cu::posit_rt)
+        against posit_decode(posit_encode(x)) on every one of the 2^32 f32
+        patterns: P16_2 and P8_2 in their compiled instances and at run
+        time, and five formats only at run time (es 0, 1, 3 and 4); any
+        mismatch fails."""
+        from repro_torch.kernels import recurrent_scan as RS
+        cases = [(16, 2, True), (8, 2, True), (16, 2, False), (8, 2, False),
+                 (16, 1, False), (8, 0, False), (12, 3, False),
+                 (16, 3, False), (16, 4, False)]
+        rows = {}
+        t0 = time.perf_counter()
+        for n, es, spec in cases:
+            bad, first = RS.round_trip_mismatches(n, es, spec)
+            label = f"P{n}_{es} {'compiled' if spec else 'runtime'}"
+            rows[label] = bad
+            if bad:
+                raise AssertionError(f"posit_rt {label}: {bad} of 2^32 f32 "
+                                     f"patterns differ from the codec, the "
+                                     f"first {first:#010x}")
+        self.details["round_trip_mismatches"] = rows
+        log(f"[round trip] posit_rt equals posit_decode(posit_encode()) on "
+            f"all 2^32 f32 patterns for {', '.join(rows)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    def _misaligned(self, x):
+        """x's values in a contiguous tensor that starts 4 bytes past an
+        aligned address (the scans then take their 4-byte copies)."""
+        buf = self.torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    def _check_wkv_case(self, label, r, k, v, logw, u, nn, mode):
+        """K12 on one case against its plain version: the final state
+        bit-identical, the idle slot (4) kept and its y 0, y within
+        `_wkv_y_bound`, a repeated launch bit-identical."""
         torch = self.torch
         from repro_torch.kernels import recurrent_scan as RS
         from repro_torch.kernels import ref
-        for T in (1, 128):
+        B, H, _, dh = r.shape
+        s0, cfg, ps = self._scan_state(mode, (B, H, dh, dh), 0.5)
+        y, sf = RS.wkv_scan(r, k, v, logw, u, s0, nn, cfg_state=cfg,
+                            posit_state=ps)
+        y_p, sf_p = RS.wkv_scan_plain(r, k, v, logw, u, s0, nn,
+                                      cfg_state=cfg, posit_state=ps)
+        y2, sf2 = RS.wkv_scan(r, k, v, logw, u, s0, nn, cfg_state=cfg,
+                              posit_state=ps)
+        torch.cuda.synchronize()
+        for got, again in ((y, y2), (sf, sf2)):
+            self._repeat_same(f"wkv_scan {label} {mode}", got, again)
+        same = self._same_bits(sf, sf_p)
+        idle = self._same_bits(sf[4], s0[4])
+        s0f = ref.decode_ref(s0, cfg) if ps else s0
+        tol = self._wkv_y_bound(r, k, v, logw, u, s0f, nn, cfg)
+        log(f"[wkv_scan] {label} state {mode}: state bit-identical {same}, "
+            f"idle slot kept {idle}")
+        ratio = self._within("wkv_scan", f"{label} state {mode} y", y, y_p,
+                             tol)
+        if not (same and idle and bool((y[4] == 0).all())):
+            raise AssertionError(f"wkv_scan {label} {mode}: state differs "
+                                 f"from the plain version")
+        self.details.setdefault("wkv_y_err_over_bound", {})[
+            f"{label} {mode}"] = ratio
+
+    def _check_rglru_case(self, label, a, b, nn, mode):
+        """K13 on one case against its plain version: the h sequence and
+        final state bit-identical, the idle slot (4) kept, a repeated
+        launch bit-identical."""
+        torch = self.torch
+        from repro_torch.kernels import recurrent_scan as RS
+        h0, cfg, ps = self._scan_state(mode, (a.shape[0], a.shape[2]), 1.0)
+        h, hf = RS.rglru_scan(a, b, h0, nn, cfg_state=cfg, posit_state=ps)
+        h_p, hf_p = RS.rglru_scan_plain(a, b, h0, nn, cfg_state=cfg,
+                                        posit_state=ps)
+        h2, hf2 = RS.rglru_scan(a, b, h0, nn, cfg_state=cfg, posit_state=ps)
+        torch.cuda.synchronize()
+        for got, again in ((h, h2), (hf, hf2)):
+            self._repeat_same(f"rglru_scan {label} {mode}", got, again)
+        ok = (self._same_bits(hf, hf_p) and self._same_bits(h, h_p)
+              and self._same_bits(hf[4], h0[4]))
+        self.err("rglru_scan", (h - h_p).abs().max())
+        log(f"[rglru_scan] {label} state {mode}: h sequence and final state "
+            f"bit-identical {ok}")
+        if not ok:
+            raise AssertionError(f"rglru_scan {label} {mode}: differs from "
+                                 f"the plain version")
+
+    def check_recurrent_kernels(self):
+        """K12 and K13 against their plain versions at the serving shapes
+        (rwkv6-3b: B = 8, H = 40, dh = 64; recurrentgemma-9b: B = 8, d =
+        4,096), T = 1, 37, 128 and 130 (37 and 130 leave K12 a partial
+        staging chunk), for posit16, posit8, f32 round-tripped
+        through posit16 and plain f32 state, ragged num_new with a 0: the
+        final state bit-identical, K13's h sequence bit-identical, K12's y
+        within the f32 bound of `_wkv_y_bound`; the idle slot's bits come
+        back as they went in; each launch repeated gives the same bits.
+        Then the generic paths at T = 37: K12 at head_dim 18 (4-byte
+        copies) and on inputs 4 bytes off alignment, K13 at an odd width
+        and on misaligned inputs.  u, w_lora_b's product (logw) and the
+        state are drawn from a seeded normal: the reference's init zeroes
+        u and the decay LoRA."""
+        torch = self.torch
+        for T in (1, 37, 128, 130):
             nn = self._scan_nn(T)
-            r, k, v, logw, u = self._wkv_inputs(8, 40, T, 64)
+            wkv = self._wkv_inputs(8, 40, T, 64)
             a = torch.sigmoid(self.randn(8, T, 4096) + 2.0)
             b = self.randn(8, T, 4096, scale=0.3)
             for mode in ("p16", "p8", "f32-rt", "f32"):
-                s0, cfg, ps = self._scan_state(mode, (8, 40, 64, 64), 0.5)
-                y, sf = RS.wkv_scan(r, k, v, logw, u, s0, nn, cfg_state=cfg,
-                                    posit_state=ps)
-                y_p, sf_p = RS.wkv_scan_plain(r, k, v, logw, u, s0, nn,
-                                              cfg_state=cfg, posit_state=ps)
-                torch.cuda.synchronize()
-                same = self._same_bits(sf, sf_p)
-                idle = self._same_bits(sf[4], s0[4])
-                s0f = ref.decode_ref(s0, cfg) if ps else s0
-                tol = self._wkv_y_bound(r, k, v, logw, u, s0f, nn, cfg)
-                log(f"[wkv_scan] T={T} state {mode}: state bit-identical "
-                    f"{same}, idle slot kept {idle}")
-                ratio = self._within("wkv_scan", f"T={T} state {mode} y", y,
-                                     y_p, tol)
-                if not (same and idle and bool((y[4] == 0).all())):
-                    raise AssertionError(f"wkv_scan T={T} {mode}: state "
-                                         f"differs from the plain version")
-                self.details.setdefault("wkv_y_err_over_bound", {})[
-                    f"T={T} {mode}"] = ratio
-                h0, cfg, ps = self._scan_state(mode, (8, 4096), 1.0)
-                h, hf = RS.rglru_scan(a, b, h0, nn, cfg_state=cfg,
-                                      posit_state=ps)
-                h_p, hf_p = RS.rglru_scan_plain(a, b, h0, nn, cfg_state=cfg,
-                                                posit_state=ps)
-                torch.cuda.synchronize()
-                ok = (self._same_bits(hf, hf_p) and self._same_bits(h, h_p)
-                      and self._same_bits(hf[4], h0[4]))
-                self.err("rglru_scan", (h - h_p).abs().max())
-                log(f"[rglru_scan] T={T} state {mode}: h sequence and final "
-                    f"state bit-identical {ok}")
-                if not ok:
-                    raise AssertionError(f"rglru_scan T={T} {mode}: differs "
-                                         f"from the plain version")
+                self._check_wkv_case(f"T={T}", *wkv, nn, mode)
+                self._check_rglru_case(f"T={T}", a, b, nn, mode)
+        T = 37
+        nn = self._scan_nn(T)
+        for label, dh, off in (("dh=18", 18, False),
+                               ("misaligned", 64, True)):
+            r, k, v, logw, u = self._wkv_inputs(8, 4, T, dh)
+            if off:
+                r, k, v, logw = map(self._misaligned, (r, k, v, logw))
+            for mode in ("p16", "f32"):
+                self._check_wkv_case(f"T={T} {label}", r, k, v, logw, u, nn,
+                                     mode)
+        for label, d, off in (("d=4097", 4097, False),
+                              ("misaligned", 4096, True)):
+            a = torch.sigmoid(self.randn(8, T, d) + 2.0)
+            b = self.randn(8, T, d, scale=0.3)
+            if off:
+                a, b = map(self._misaligned, (a, b))
+            for mode in ("p16", "f32"):
+                self._check_rglru_case(f"T={T} {label}", a, b, nn, mode)
 
     def _nar_pool(self, cfg, P, n_kv, page, D):
         """A pool whose garbage page 0 holds NaR (NaN for f32), and its twin
@@ -3412,16 +3600,14 @@ class Smoke:
                                  f"plain {plain}")
         return {"flash_attention": launches["flash_attention"]}
 
-    def time_recurrent_kernels(self):
+    def time_scans(self, plain=True):
         """K12 and K13 at a decode step's (T = 1) and a prefill chunk's
-        (T = 128) shapes with posit16 state, one layer each; K3/K4 at D =
-        256, G = 16 (recurrentgemma's attention) at the smollm rows' lengths
-        and at 8 x 2,208 tokens with the 2,048 window (time_paged, beside
-        SDPA with the window's mask); K14 at [120, 512, 64] and [128, 512,
-        256] causal, posit16 and f32 KV, beside SDPA."""
+        (T = 128) shapes with posit16 state, one layer each (rwkv6-3b: B =
+        8, H = 40, dh = 64; recurrentgemma-9b: B = 8, d = 4,096), cold L2,
+        beside the plain versions unless `plain` is False; records the
+        decode shapes' rows.  Returns {label: numbers}."""
         torch = self.torch
         from repro_torch.core.types import P16_2
-        from repro_torch.kernels import flash_attention as F
         from repro_torch.kernels import recurrent_scan as RS
         from repro_torch.kernels import ref
         rows = {}
@@ -3439,17 +3625,22 @@ class Smoke:
                 sets.append((r, k, v, logw, u, s0, nn))
             flops = 5.0 * B * H * T * dh * dh
             bnd, by = bound(nbytes, flops)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            issue = (K12_INSTR_PER_ELEMENT * B * H * T * dh * dh / 32
+                     / (sms * 4 * gpu_max_sm_clock_mhz() * 1e6) * 1e3)
             kw = dict(cfg_state=P16_2, posit_state=True)
             kern = time_ms(torch, lambda *a: RS.wkv_scan(*a, **kw), sets,
                            ITERS, "wkv_scan")
-            plain = time_ms(torch, lambda *a: RS.wkv_scan_plain(*a, **kw),
-                            sets, 3 if T > 1 else 10, "wkv_scan_plain")
-            rows[f"wkv_scan T={T}"] = dict(ms=kern, plain_ms=plain,
-                                           bound_ms=bnd, bound_by=by)
+            plain_ms = (time_ms(torch, lambda *a: RS.wkv_scan_plain(
+                *a, **kw), sets, 3 if T > 1 else 10, "wkv_scan_plain")
+                if plain else None)
+            rows[f"wkv_scan T={T}"] = dict(ms=kern, plain_ms=plain_ms,
+                                           bound_ms=bnd, bound_by=by,
+                                           issue_ms_estimate=issue)
             if T == 1:
                 self.record("wkv_scan", shape="one rwkv6-3b layer, decode "
                             "step: B=8, H=40, dh=64, p16 state",
-                            ms=kern, plain_ms=plain, library_ms=None,
+                            ms=kern, plain_ms=plain_ms, library_ms=None,
                             bound_ms=bnd, bound_by=by)
             d = 4096
             nbytes = 3 * B * T * d * 4 + 2 * B * d * 2
@@ -3462,15 +3653,40 @@ class Smoke:
             bnd, by = bound(nbytes, 2.0 * B * T * d)
             kern = time_ms(torch, lambda *a: RS.rglru_scan(*a, **kw), sets,
                            ITERS, "rglru_scan")
-            plain = time_ms(torch, lambda *a: RS.rglru_scan_plain(*a, **kw),
-                            sets, 3 if T > 1 else 10, "rglru_scan_plain")
-            rows[f"rglru_scan T={T}"] = dict(ms=kern, plain_ms=plain,
+            plain_ms = (time_ms(torch, lambda *a: RS.rglru_scan_plain(
+                *a, **kw), sets, 3 if T > 1 else 10, "rglru_scan_plain")
+                if plain else None)
+            rows[f"rglru_scan T={T}"] = dict(ms=kern, plain_ms=plain_ms,
                                              bound_ms=bnd, bound_by=by)
             if T == 1:
                 self.record("rglru_scan", shape="one recurrentgemma-9b "
                             "layer, decode step: B=8, d=4096, p16 state",
-                            ms=kern, plain_ms=plain, library_ms=None,
+                            ms=kern, plain_ms=plain_ms, library_ms=None,
                             bound_ms=bnd, bound_by=by)
+
+        card = self.details["gpu"]
+        for name, rec in rows.items():
+            pl, issue = rec["plain_ms"], rec.get("issue_ms_estimate")
+            log(f"[time] {name}: {rec['ms']:.4f} ms ("
+                f"{'' if pl is None else f'plain {pl:.4f}, '}bound "
+                f"{rec['bound_ms']:.4f} by {rec['bound_by']}"
+                f"{'' if issue is None else f'; issue-rate estimate {issue:.4f}'}"
+                f") ({card})")
+        self.details.setdefault("scan_times", {}).update(rows)
+        return rows
+
+    def time_recurrent_kernels(self):
+        """K12 and K13 at a decode step's (T = 1) and a prefill chunk's
+        (T = 128) shapes with posit16 state, one layer each; K3/K4 at D =
+        256, G = 16 (recurrentgemma's attention) at the smollm rows' lengths
+        and at 8 x 2,208 tokens with the 2,048 window (time_paged, beside
+        SDPA with the window's mask); K14 at [120, 512, 64] and [128, 512,
+        256] causal, posit16 and f32 KV, beside SDPA."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import flash_attention as F
+        from repro_torch.kernels import ref
+        rows = self.time_scans()
 
         # K3/K4 at D = 256, G = 16 (beside SDPA with the window's mask)
         rows.update(self.time_paged(("d256",)))
@@ -3514,8 +3730,8 @@ class Smoke:
         self.details["recurrent_kernel_times"] = rows
         card = self.details["gpu"]
         for name, rec in rows.items():
-            if name.startswith("paged_"):
-                continue                        # logged by time_paged
+            if name.startswith(("paged_", "wkv_scan", "rglru_scan")):
+                continue                        # logged by their timers
             lib, pl = rec.get("library_ms"), rec["plain_ms"]
             log(f"[time] {name}: {rec['ms']:.4f} ms ("
                 f"{'' if pl is None else f'plain {pl:.4f}, '}"
@@ -4082,6 +4298,15 @@ def main() -> int:
                     "9b's layers, beside SDPA, without the plain versions "
                     "(with --src, another commit's kernels through its own "
                     "wrappers under the same harness)")
+    ap.add_argument("--scan-times", action="store_true", help="run only "
+                    "K12/K13's timings at rwkv6-3b's and recurrentgemma-"
+                    "9b's decode and prefill shapes, without the plain "
+                    "versions (with --src, another commit's kernels "
+                    "through its own wrappers under the same harness)")
+    ap.add_argument("--prefill-traces", action="store_true", help="run "
+                    "only the profiled prefill steps of rwkv6-3b and "
+                    "recurrentgemma-9b (with --src, another commit's "
+                    "kernels and engine under the same harness)")
     ap.add_argument("--flash-sass", default=None, metavar="DIR",
                     help="run only the SASS comparison of the contiguous "
                     "flash kernels (K7/K14, K8, K9) with another tree's "
@@ -4129,6 +4354,14 @@ def main() -> int:
     if args.paged_times:
         log(json.dumps(s.time_paged(plain=False)))
         return 0
+    if args.scan_times:
+        log(json.dumps(s.time_scans(plain=False)))
+        return 0
+    if args.prefill_traces:
+        s.prefill_traces()
+        log(json.dumps({k: v for k, v in s.details.items()
+                        if k.endswith("_prefill_trace")}))
+        return 0
     if args.grouped_times:
         s.time_moe_kernels(plain=False)
         log(json.dumps({k: s.details[k] for k in ("moe_kernel_totals",
@@ -4159,6 +4392,13 @@ def main() -> int:
     s.details["paged_attention_ptxas"] = regs
     log("[build] paged_attention: paged_decode_kernel registers "
         f"{sorted(r['registers'] for r in regs)}, no spills")
+    regs = ptxas_report(build, "recurrent_scan", ("wkv_scan_kernel",
+                                                  "rglru_scan_kernel",
+                                                  "rt_check_kernel"))
+    s.details["recurrent_scan_ptxas"] = regs
+    log("[build] recurrent_scan: " + ", ".join(
+        f"{r['kernel']} {r['registers']}" for r in regs)
+        + " registers, no spills")
     t0 = time.perf_counter()
     s.check_codec()
     s.check_append()
@@ -4254,6 +4494,7 @@ def main() -> int:
     log(f"[phase] MoE determinism {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    s.check_round_trip()
     s.check_recurrent_kernels()
     s.check_attention_d256()
     s.check_flash_attention()
@@ -4274,9 +4515,11 @@ def main() -> int:
         log(f"[phase] {arch} serving {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         s.trace_decode(qparams, cfg, reqs, key=f"{key}_trace")
+        s.trace_prefill(qparams, cfg, reqs, key=f"{key}_prefill_trace")
         del qparams
         torch.cuda.empty_cache()
-        log(f"[phase] {arch} decode trace {time.perf_counter() - t0:.1f} s")
+        log(f"[phase] {arch} decode and prefill traces "
+            f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     s.check_recurrent_logits("rwkv6-3b", 2, gate=False)
     torch.cuda.empty_cache()

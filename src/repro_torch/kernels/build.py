@@ -69,6 +69,7 @@ SIGNATURES = {
     "recurrent_scan": {
         "wkv_scan": (_P,) * 9 + (_I,) * 7 + (_P,),
         "rglru_scan": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "posit_rt_check": (_I, _I, _I, _P, _P),
     },
 }
 

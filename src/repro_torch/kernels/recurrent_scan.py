@@ -9,6 +9,14 @@ recurrence of Griffin / RecurrentGemma.  The carried state is posit bits
 per-token round trip through `cfg_state`; `num_new` [B] masks ragged
 chunks.  CPU tensors take the plain versions (`ref.wkv_scan_ref`,
 `ref.rglru_scan_ref`); CUDA tensors launch the kernel or raise.
+
+The constants below mirror ``csrc/recurrent_scan.cu``'s (the CPU tests
+hold them to the source): K12 splits each state column's 64 rows over
+`WKV_R` threads of a warp, a block being `WKV_COLS` columns of one (b, h),
+with `WKV_TC` tokens a staged chunk; K13 gives each thread `RG_CHANNELS`
+channels and keeps `RG_DEPTH` tokens in flight.  `round_trip_mismatches`
+runs the kernels' direct posit round trip against the codec over every
+f32 pattern on the card.
 """
 from __future__ import annotations
 
@@ -18,6 +26,18 @@ from repro_torch.core.types import PositConfig
 from repro_torch.kernels import build, ref
 
 _DH_MAX = 64
+WKV_R = 4                 # threads a state column
+WKV_ROWS = _DH_MAX // WKV_R
+WKV_COLS = 32             # columns a block
+WKV_THREADS = WKV_COLS * WKV_R
+WKV_TC = 16               # tokens a staged chunk
+WKV_MIN_BLOCKS = 5        # blocks an SM (launch bounds)
+# r, k, e^w, v of a chunk, double-buffered; su of a chunk, twice; u
+WKV_SMEM_BYTES = 2 * 4 * WKV_TC * _DH_MAX * 4 + 2 * WKV_TC * 4 + _DH_MAX * 4
+RG_CHANNELS = 2           # channels a thread
+RG_THREADS = 128
+RG_DEPTH = 16             # tokens in flight a thread
+RG_SMEM_BYTES = RG_DEPTH * 2 * RG_THREADS * RG_CHANNELS * 4
 
 
 def _state_dtype(s, cfg_state: PositConfig | None, posit_state: bool, fn):
@@ -133,6 +153,21 @@ def rglru_scan(a, b, h0, num_new, *, cfg_state: PositConfig | None,
     rglru_scan.launches += 1
     build.check_launch(rc, "rglru_scan")
     return y, h_out
+
+
+def round_trip_mismatches(n: int, es: int, specialised: bool,
+                          device="cuda") -> tuple[int, int | None]:
+    """The kernels' direct round trip (P16_2 and P8_2 compiled for their
+    format when `specialised`, else with (n, es) at run time) against
+    posit_decode(posit_encode(x)) over all 2^32 f32 patterns, on the card
+    -> (mismatches, the least mismatching pattern or None)."""
+    lib = build.library("recurrent_scan")
+    out = torch.tensor([0, -1], dtype=torch.int64, device=device)
+    rc = lib.posit_rt_check(n, es, int(specialised), out.data_ptr(),
+                            build.stream(out))
+    build.check_launch(rc, "posit_rt_check")
+    bad, first = out.tolist()
+    return bad, (None if bad == 0 else first & 0xFFFFFFFF)
 
 
 wkv_scan.launches = 0
