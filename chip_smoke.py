@@ -7,6 +7,7 @@
     python3 chip_smoke.py --grouped-times [--src DIR]
     python3 chip_smoke.py --paged-times [--src DIR]
     python3 chip_smoke.py --scan-times [--src DIR]
+    python3 chip_smoke.py --codec-times [--src DIR]
     python3 chip_smoke.py --prefill-traces [--src DIR]
     python3 chip_smoke.py --flash-sass DIR
 
@@ -17,11 +18,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    and ptxas's registers of every instance of the tiled posit GEMM and its
    split-K reduce, of the grouped GEMM's decode and tiled forms and its dW
    (K10, K11) and of the flash kernels (K7, K8, K9), none of which may
-   spill, nor may the paged decode (K3), K7's paged instance (K4) or the
-   scans (K12, K13);
+   spill, nor may the codec (K1), the paged decode (K3), K7's paged
+   instance (K4) or the scans (K12, K13);
 2. every kernel against its plain PyTorch version on the card, at the
    shapes of full-width smollm-360m, for posit16, posit8 and float pages:
-   the codec bit-exact (exhaustive decode, encode over an f32 sweep), the
+   the codec bit-exact (K1: the decode over every pattern; the encode and
+   the one-pass round trip over all 2^32 f32 patterns for P16_2 and P8_2,
+   compiled for their format, and P16_1 at run time; every entry on
+   ragged lengths and misaligned views, and through its C entry with a
+   head of lanes before its float4 steps; the append with masked tokens,
+   positions past the table and pages outside the pool at the prefill and
+   decode steps' shapes, head_dim 20, 256 and 18, misaligned k and v), the
    posit GEMM within the f32 dot-product error bound (plus, for f32 x f32,
    the 2^-22 (|a| @ |b|) its tensor-core route declares), also at edge
    shapes (M 9/24/129, N 100, K 1/7/33, and two split-K shapes) with f32,
@@ -107,10 +114,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    comparison); then `train_loop` at depth 4 of 16 for 8 posit16 steps
    of 8 x 512 tokens (counted, with a profiled step) and one depth-2
    step repeated from the same state, bit-identical;
-7. the recurrent and hybrid serving path: (a) the scans' direct posit
-   round trip against posit_decode(posit_encode()) over all 2^32 f32
-   patterns (P16_2 and P8_2 compiled for their format, and at run time
-   with five more formats); the WKV scan (K12) and the
+7. the recurrent and hybrid serving path: (a) the direct posit round
+   trip (K12's, K13's and K1's) against posit_decode(posit_encode()) over
+   all 2^32 f32 patterns (P16_2 and P8_2 compiled for their format, and
+   at run time with five more formats); the WKV scan (K12) and the
    RG-LRU scan (K13) against their plain versions at rwkv6-3b's and
    recurrentgemma-9b's serving shapes (T = 1, 37, 128 and 130, the odd
    ones leaving a partial staging chunk; posit16, posit8, round-tripped
@@ -152,7 +159,11 @@ smollm-360m's and recurrentgemma-9b's layers beside SDPA (another commit's
 kernels through that commit's own wrappers with ``--src``);
 ``--scan-times`` for K12 and K13 at a decode step's and a prefill chunk's
 shapes of rwkv6-3b and recurrentgemma-9b (with ``--src``, another
-commit's kernels through its own wrappers); ``--prefill-traces`` runs
+commit's kernels through its own wrappers); ``--codec-times`` the same for
+K1: decode, encode, the append at a prefill and a decode step, and the
+round trip of one olmoe-1b-7b expert stack beside decode(encode()) (a
+tree without the round trip times the two passes only); these two modes
+build only the library they time; ``--prefill-traces`` runs
 only the profiled prefill steps of those two models (with ``--src``,
 another commit's kernels and engine).
 ``--flash-sass DIR`` compares the SASS of the contiguous flash kernels (K7
@@ -437,6 +448,10 @@ class Smoke:
 
     # ---- phase 2: kernels vs plain versions ------------------------------
     def check_codec(self):
+        """K1 against its plain versions, bit for bit: the decode over
+        every pattern and the encode and round trip over an f32 sweep for
+        P16_2, P16_1, P8_2 and P8_0; then `check_codec_all_f32` and
+        `check_codec_layouts`."""
         torch = self.torch
         from repro_torch.core.types import P8_0, P8_2, P16_1, P16_2
         from repro_torch.kernels import posit_codec as C
@@ -455,13 +470,176 @@ class Smoke:
             got = C.encode_block(sweep, cfg)
             want_e = C.encode_block_plain(sweep, cfg)
             bad = int((got != want_e).sum())
-            log(f"[codec] encode {cfg}: {sweep.numel()} f32 values (+-0, "
-                f"subnormals, Inf, NaN, random bits, posit values +-1 ulp), "
-                f"{bad} mismatches (bit-exact required)")
-            if bad:
-                raise AssertionError(f"encode_block {cfg}: {bad} mismatches")
-        self.err("decode_block", 0.0)
-        self.err("encode_block", 0.0)
+            got = C.round_trip_block(sweep, cfg)
+            want_r = C.round_trip_block_plain(sweep, cfg)
+            bad_r = int((got.view(torch.int32)
+                         != want_r.view(torch.int32)).sum())
+            log(f"[codec] encode and round trip {cfg}: {sweep.numel()} f32 "
+                f"values (+-0, subnormals, Inf, NaN, random bits, posit "
+                f"values +-1 ulp), {bad} and {bad_r} mismatches (bit-exact "
+                f"required)")
+            if bad or bad_r:
+                raise AssertionError(f"encode_block / round_trip_block "
+                                     f"{cfg}: {bad} / {bad_r} mismatches")
+        self.check_codec_all_f32()
+        self.check_codec_layouts()
+        for name in ("decode_block", "encode_block", "round_trip_block"):
+            self.err(name, 0.0)
+
+    def check_codec_all_f32(self):
+        """K1's encode and round trip against their plain versions on every
+        one of the 2^32 f32 patterns, in chunks of 2^27: P16_2 and P8_2
+        (compiled for their format) and P16_1 (the runtime instance)."""
+        torch = self.torch
+        from repro_torch.core.types import P8_2, P16_1, P16_2
+        from repro_torch.kernels import posit_codec as C
+        chunk = 1 << 27
+        t0 = time.perf_counter()
+        rows = {}
+        for cfg in (P16_2, P8_2, P16_1):
+            bad_e = bad_r = 0
+            first = None
+            for lo in range(-(1 << 31), 1 << 31, chunk):
+                x = torch.arange(lo, lo + chunk, dtype=torch.int64,
+                                 device=self.dev).to(torch.int32).view(
+                                     torch.float32)
+                e = (C.encode_block(x, cfg)
+                     != C.encode_block_plain(x, cfg))
+                r = (C.round_trip_block(x, cfg).view(torch.int32)
+                     != C.round_trip_block_plain(x, cfg).view(torch.int32))
+                nb_e, nb_r = int(e.sum()), int(r.sum())
+                if (nb_e or nb_r) and first is None:
+                    idx = int(torch.nonzero(e | r)[0, 0])
+                    first = (lo + idx) & 0xFFFFFFFF
+                bad_e, bad_r = bad_e + nb_e, bad_r + nb_r
+                del x, e, r
+            rows[str(cfg)] = {"encode": bad_e, "round_trip": bad_r}
+            if bad_e or bad_r:
+                raise AssertionError(
+                    f"{cfg}: {bad_e} encodes and {bad_r} round trips of the "
+                    f"2^32 f32 patterns differ from the plain versions, the "
+                    f"first {first:#010x}")
+        torch.cuda.empty_cache()
+        self.details["codec_all_f32_mismatches"] = rows
+        log(f"[codec] encode_block and round_trip_block equal their plain "
+            f"versions on all 2^32 f32 patterns for {', '.join(rows)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    def _codec_direct(self, kind, x, cfg, off):
+        """One K1 pass through its C entry, both sides starting `off`
+        elements into a fresh buffer (so the split's head is a lane run
+        before the float4 steps, which the wrappers' fresh outputs never
+        give), against the plain version; returns the split used."""
+        torch = self.torch
+        from repro_torch.kernels import build
+        from repro_torch.kernels import posit_codec as C
+        lib = build.library("posit_codec")
+        n = x.numel()
+        if kind == "decode":
+            src = torch.empty(n + off, dtype=x.dtype, device=self.dev)[off:]
+            dst = torch.empty(n + off, dtype=torch.float32,
+                              device=self.dev)[off:]
+            src.copy_(x)
+            head, nvec = C.codec_split(n, dst.data_ptr(), src.data_ptr(),
+                                       src.element_size())
+            rc = lib.posit_decode_block(src.data_ptr(), dst.data_ptr(), n,
+                                        head, nvec,
+                                        build.DTYPE_CODE[src.dtype], cfg.n,
+                                        cfg.es, build.stream(src))
+            want = C.decode_block_plain(x, cfg)
+        elif kind == "encode":
+            dt = getattr(torch, cfg.storage_dtype_name)
+            src = torch.empty(n + off, dtype=torch.float32,
+                              device=self.dev)[off:]
+            dst = torch.empty(n + off, dtype=dt, device=self.dev)[off:]
+            src.copy_(x)
+            head, nvec = C.codec_split(n, src.data_ptr(), dst.data_ptr(),
+                                       dst.element_size())
+            rc = lib.posit_encode_block(src.data_ptr(), dst.data_ptr(), n,
+                                        head, nvec, build.DTYPE_CODE[dt],
+                                        cfg.n, cfg.es, build.stream(src))
+            want = C.encode_block_plain(x, cfg)
+        else:
+            src = torch.empty(n + off, dtype=torch.float32,
+                              device=self.dev)[off:]
+            dst = torch.empty(n + off, dtype=torch.float32,
+                              device=self.dev)[off:]
+            src.copy_(x)
+            head, nvec = C.codec_split(n, src.data_ptr(), dst.data_ptr(), 4)
+            rc = lib.posit_round_trip_block(src.data_ptr(), dst.data_ptr(),
+                                            n, head, nvec, cfg.n, cfg.es,
+                                            build.stream(src))
+            want = C.round_trip_block_plain(x, cfg)
+        build.check_launch(rc, f"posit {kind} at offset {off}")
+        if dst.element_size() == 4:
+            bad = int((dst.view(torch.int32) != want.view(torch.int32)).sum())
+        else:
+            bad = int((dst != want).sum())
+        if bad:
+            raise AssertionError(f"{kind} {cfg}, {n} elements at offset "
+                                 f"{off}: {bad} mismatches")
+        return head, nvec
+
+    def check_codec_layouts(self):
+        """Every K1 entry on ragged lengths and misaligned operands, bit for
+        bit against its plain version: through the wrappers on views that
+        start 1-15 elements into a buffer (every element then a lane where
+        no step fits both sides) at lengths around a step, and
+        through the C entries with both sides offset alike (a head of lanes,
+        float4 steps, a tail), and with the wrong split, which must be
+        refused."""
+        torch = self.torch
+        from repro_torch.core.types import P8_0, P8_2, P16_1, P16_2
+        from repro_torch.kernels import build
+        from repro_torch.kernels import posit_codec as C
+        lens = (1, 3, 7, 8, 9, 15, 16, 17, 31, 33, 1000, 65537, 1 << 20)
+        splits = set()
+        cases = 0
+        for cfg in (P16_2, P8_2, P16_1, P8_0):
+            dt = getattr(torch, cfg.storage_dtype_name)
+            for n in lens:
+                x = self.randn(n, scale=4.0)
+                bits = C.encode_block_plain(x, cfg)
+                for off in (0, 1, 3, 5, 15):
+                    fb = torch.empty(n + off, device=self.dev)[off:]
+                    fb.copy_(x)
+                    pb = torch.empty(n + off, dtype=dt, device=self.dev)[off:]
+                    pb.copy_(bits)
+                    self._same(f"decode {cfg} n={n} off={off}",
+                               C.decode_block(pb, cfg).view(torch.int32),
+                               C.decode_block_plain(pb, cfg).view(
+                                   torch.int32))
+                    self._same(f"encode {cfg} n={n} off={off}",
+                               C.encode_block(fb, cfg),
+                               C.encode_block_plain(fb, cfg))
+                    self._same(f"round trip {cfg} n={n} off={off}",
+                               C.round_trip_block(fb, cfg).view(torch.int32),
+                               C.round_trip_block_plain(fb, cfg).view(
+                                   torch.int32))
+                    for kind in ("decode", "encode", "round_trip"):
+                        src = bits if kind == "decode" else x
+                        head, nvec = self._codec_direct(kind, src, cfg, off)
+                        splits.add((kind, head > 0, nvec > 0))
+                        cases += 4
+        # the split must be the source's: a shifted one is refused
+        lib = build.library("posit_codec")
+        x = self.randn(1000)
+        out = torch.empty(1000, dtype=torch.int16, device=self.dev)
+        rc = lib.posit_encode_block(x.data_ptr(), out.data_ptr(), 1000, 1,
+                                    124, build.DTYPE_CODE[torch.int16], 16, 2,
+                                    build.stream(x))
+        if rc != 9:
+            raise AssertionError(f"posit_encode_block took a split that is "
+                                 f"not its own (rc {rc})")
+        heads = {k for k, h, v in splits if h and v}
+        if heads != {"decode", "encode", "round_trip"}:
+            raise AssertionError(f"no head-and-steps split ran for "
+                                 f"{ {'decode', 'encode', 'round_trip'} - heads}")
+        log(f"[codec] {cases} ragged and misaligned calls of decode, encode "
+            f"and the round trip (P16_2, P8_2, P16_1, P8_0; lengths "
+            f"{lens[0]}..{lens[-1]}, offsets 0-15 elements; lane runs, "
+            f"heads, float4 steps and tails) bit-exact; a foreign split "
+            f"refused")
 
     def _f32_sweep(self, values):
         torch = self.torch
@@ -485,32 +663,59 @@ class Smoke:
                           subn.view(torch.float32), near, mids])
 
     def check_append(self):
+        """The fused KV append against its plain version, byte for byte, in
+        posit16, posit8 and float pages: a prefill step [8,5,128,64] with
+        masked tokens (num_new 91, 0, 17), positions past the table, table
+        entries of -1 and past the pool; a decode step [8,5,1,64]; the smoke
+        configs' head_dim 20 and 256 (the row's lanes at D % 8 == 4 and 64
+        chunks); head_dim 18 and k, v starting 4 bytes off a 16-byte
+        boundary (element by element)."""
         torch = self.torch
         from repro_torch.core.types import P8_2, P16_2
         from repro_torch.kernels import posit_codec as C
-        B, n_kv, S, D, page, W, P = 8, 5, 128, 64, 16, 34, 300
+        n_kv, page, W, P = 5, 16, 34, 300
         sl = torch.tensor([0, 16, 37, 128, 200, 300, 411, 500],
                           dtype=torch.int32, device=self.dev)
-        nn = torch.tensor([128, 128, 91, 0, 128, 17, 128, 128],
-                          dtype=torch.int32, device=self.dev)
         table = torch.randperm(P - 1, generator=self.gen, device=self.dev)
-        table = (table[:B * W] + 1).reshape(B, W).to(torch.int32)
-        k, v = self.randn(B, n_kv, S, D), self.randn(B, n_kv, S, D)
-        for cfg in (P16_2, P8_2, None):
-            dt = (torch.float32 if cfg is None
-                  else getattr(torch, cfg.storage_dtype_name))
-            pools = [torch.zeros((P, n_kv, page, D), dtype=dt,
-                                 device=self.dev) for _ in range(4)]
-            C.paged_append(k, v, pools[0], pools[1], table, sl, nn, cfg)
-            C.paged_append_plain(k, v, pools[2], pools[3], table, sl, nn, cfg)
-            bad = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
-                      for a, b in ((pools[0], pools[2]),
-                                   (pools[1], pools[3])))
-            log(f"[append] {cfg or 'float'} pages, [8,5,128,64] with masked "
-                f"tokens and positions past the table: {bad} byte "
-                f"mismatches (bit-exact required)")
-            if bad:
-                raise AssertionError(f"paged_append {cfg}: {bad} mismatches")
+        table = (table[:8 * W] + 1).reshape(8, W).to(torch.int32)
+        table[1, 3] = -1                          # dropped: no page
+        table[2, 3] = P + 7                       # dropped: outside the pool
+        cases = [("prefill [8,5,128,64]", 128, 64, [128, 128, 91, 0, 128,
+                                                     17, 128, 128], False),
+                 ("decode [8,5,1,64]", 1, 64, [1, 1, 1, 0, 1, 1, 1, 1],
+                  False),
+                 ("head_dim 20", 37, 20, [37, 30, 37, 0, 5, 37, 37, 37],
+                  False),
+                 ("head_dim 256", 19, 256, [19, 19, 3, 0, 19, 19, 19, 19],
+                  False),
+                 ("head_dim 18", 37, 18, [37, 30, 37, 0, 5, 37, 37, 37],
+                  False),
+                 ("misaligned k, v", 37, 64, [37, 30, 37, 0, 5, 37, 37, 37],
+                  True)]
+        for label, S, D, new, shift in cases:
+            nn = torch.tensor(new, dtype=torch.int32, device=self.dev)
+            k, v = self.randn(8, n_kv, S, D), self.randn(8, n_kv, S, D)
+            if shift:
+                k, v = self._misaligned(k), self._misaligned(v)
+            for cfg in (P16_2, P8_2, None):
+                dt = (torch.float32 if cfg is None
+                      else getattr(torch, cfg.storage_dtype_name))
+                pools = [torch.zeros((P, n_kv, page, D), dtype=dt,
+                                     device=self.dev) for _ in range(4)]
+                C.paged_append(k, v, pools[0], pools[1], table, sl, nn, cfg)
+                C.paged_append_plain(k, v, pools[2], pools[3], table, sl, nn,
+                                     cfg)
+                bad = sum(int((a.view(torch.uint8)
+                               != b.view(torch.uint8)).sum())
+                          for a, b in ((pools[0], pools[2]),
+                                       (pools[1], pools[3])))
+                if bad:
+                    raise AssertionError(f"paged_append {cfg} {label}: {bad} "
+                                         f"byte mismatches")
+        log("[append] posit16, posit8 and float pages at " + ", ".join(
+            c[0] for c in cases) + ", with masked tokens, positions past the "
+            "table and table entries of -1 and past the pool: 0 byte "
+            "mismatches (bit-exact required)")
         self.err("paged_append", 0.0)
 
     def check_gemm(self):
@@ -1043,43 +1248,15 @@ class Smoke:
         cfg = P16_2
         it = ITERS
 
-        # K1 decode: the embedding rows of one prefill step [8, 128, 960]
-        shape = (8, 128, 960)
-        n = math.prod(shape)
-        sets = [(ref.encode_ref(self.randn(*shape), cfg), cfg)
-                for _ in range(copies_for(6 * n, 16))]
-        b, by = bound(6 * n, 0)
-        self.record("decode_block", shape="embed rows [8,128,960] p16",
-                    ms=time_ms(torch, C.decode_block, sets, it),
-                    plain_ms=time_ms(torch, C.decode_block_plain, sets, 20),
-                    bound_ms=b, bound_by=by, library_ms=None)
-
-        # K1 encode: PTQ of one w_up matrix [960, 2560]
-        shape = (960, 2560)
-        n = math.prod(shape)
-        sets = [(self.randn(*shape), cfg) for _ in range(copies_for(6 * n,
-                                                                    16))]
-        b, by = bound(6 * n, 0)
-        self.record("encode_block", shape="PTQ of w_up [960,2560] -> p16",
-                    ms=time_ms(torch, C.encode_block, sets, it),
-                    plain_ms=time_ms(torch, C.encode_block_plain, sets, 20),
-                    bound_ms=b, bound_by=by, library_ms=None)
-
-        # K1 append: one prefill step's K and V, [8, 5, 128, 64] each
-        B, n_kv, S, D, page, W, P = 8, 5, 128, 64, 16, 34, 273
-        table = self._table(B, W, P)
-        sl = torch.full((B,), 128, dtype=torch.int32, device=self.dev)
-        nn = torch.full((B,), S, dtype=torch.int32, device=self.dev)
-        pools = [self._pool(cfg, P, n_kv, page, D) for _ in range(4)]
-        sets = [(self.randn(B, n_kv, S, D), self.randn(B, n_kv, S, D),
-                 kp, vp, table, sl, nn, cfg) for kp, vp in pools]
-        n = B * n_kv * S * D
-        b, by = bound(2 * n * (4 + 2) + 2 * B * 4 + table.numel() * 4, 0)
-        self.record("paged_append",
-                    shape="prefill step K,V [8,5,128,64] f32 -> p16 pages",
-                    ms=time_ms(torch, C.paged_append, sets, it),
-                    plain_ms=time_ms(torch, C.paged_append_plain, sets, 20),
-                    bound_ms=b, bound_by=by, library_ms=None)
+        # K1: decode, encode, the round trip and the append
+        rows = self.time_codec()
+        for name, key in (("decode_block", "decode_block"),
+                          ("encode_block", "encode_block"),
+                          ("round_trip_block", "round_trip_block"),
+                          ("paged_append", "paged_append prefill")):
+            self.record(name, **{k: rows[key][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
 
         # K2: one decode step's 225 GEMMs (M = 8), cold weights
         per_step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -1146,6 +1323,86 @@ class Smoke:
                         plain_ms=rec["plain_ms"],
                         library_ms=rec["library_ms"],
                         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"])
+
+    def time_codec(self, plain=True):
+        """K1 at its main paths' shapes, posit16, cold L2: decode of one
+        prefill step's embedding rows [8,128,960]; encode of one w_up
+        table [960,2560] (PTQ); the append of a prefill step's and a decode
+        step's K and V ([8,5,128,64], [8,5,1,64]); and the round trip of
+        one olmoe-1b-7b expert stack [64,2048,1024] (the STE cast), beside
+        decode_block(encode_block()) of the same stack and a PyTorch copy
+        of it (the card's copy rate at the round trip's bytes).  The plain
+        versions beside them unless `plain` is False.  A tree without
+        round_trip_block (the parent, with --src) times the two passes
+        only.  Returns {label: numbers}."""
+        torch = self.torch
+        from repro_torch.core.types import P16_2
+        from repro_torch.kernels import posit_codec as C
+        from repro_torch.kernels import ref
+        cfg, it = P16_2, ITERS
+        rows = {}
+
+        def row(label, shape, fn, plain_fn, sets, nbytes, iters=it,
+                plain_iters=20):
+            b, by = bound(nbytes, 0)
+            rows[label] = {
+                "shape": shape, "ms": time_ms(torch, fn, sets, iters, label),
+                "plain_ms": (time_ms(torch, plain_fn, sets, plain_iters,
+                                     f"{label} plain")
+                             if plain and plain_fn else None),
+                "bound_ms": b, "bound_by": by, "library_ms": None}
+
+        shape = (8, 128, 960)
+        n = math.prod(shape)
+        sets = [(ref.encode_ref(self.randn(*shape), cfg), cfg)
+                for _ in range(copies_for(6 * n, 16))]
+        row("decode_block", "embed rows [8,128,960] p16", C.decode_block,
+            C.decode_block_plain, sets, 6 * n)
+        shape = (960, 2560)
+        n = math.prod(shape)
+        sets = [(self.randn(*shape), cfg) for _ in range(copies_for(6 * n,
+                                                                    16))]
+        row("encode_block", "PTQ of w_up [960,2560] -> p16", C.encode_block,
+            C.encode_block_plain, sets, 6 * n)
+        B, n_kv, D, page, W, P = 8, 5, 64, 16, 34, 273
+        table = self._table(B, W, P)
+        for S, label in ((128, "prefill"), (1, "decode")):
+            sl = torch.full((B,), 128, dtype=torch.int32, device=self.dev)
+            nn = torch.full((B,), S, dtype=torch.int32, device=self.dev)
+            pools = [self._pool(cfg, P, n_kv, page, D) for _ in range(4)]
+            sets = [(self.randn(B, n_kv, S, D), self.randn(B, n_kv, S, D),
+                     kp, vp, table, sl, nn, cfg) for kp, vp in pools]
+            n = B * n_kv * S * D
+            row(f"paged_append {label}", f"{label} step K,V [8,5,{S},64] "
+                f"f32 -> p16 pages", C.paged_append, C.paged_append_plain,
+                sets, 2 * n * (4 + 2) + 2 * B * 4 + table.numel() * 4)
+        # the STE cast of one expert stack: 134 M elements, 0.54 GB of f32
+        shape = (64, 2048, 1024)
+        n = math.prod(shape)
+        sets = [(self.randn(*shape, scale=0.02), cfg) for _ in range(2)]
+        one_pass = getattr(C, "round_trip_block", None)
+        if one_pass is not None:
+            row("round_trip_block", "STE cast of one olmoe expert stack "
+                "[64,2048,1024] p16", one_pass, C.round_trip_block_plain,
+                sets, 8 * n, iters=10, plain_iters=3)
+        row("decode(encode()) two passes", "the same stack, encode_block "
+            "then decode_block", lambda x, c: C.decode_block(
+                C.encode_block(x, c), c), None, sets, 8 * n, iters=10)
+        # a yardstick of the card's copy rate: one PyTorch copy of the
+        # stack moves the round trip's bytes
+        row("clone of the stack", "torch.clone of the same stack (a copy, "
+            "not the function)", lambda x, c: x.clone(), None, sets, 8 * n,
+            iters=10)
+        del sets
+        torch.cuda.empty_cache()
+        card = self.details["gpu"]
+        for label, rec in rows.items():
+            pl = rec["plain_ms"]
+            log(f"[time] {label} ({rec['shape']}): {rec['ms']:.4f} ms ("
+                f"{'' if pl is None else f'plain {pl:.4f}, '}bound "
+                f"{rec['bound_ms']:.4f} by {rec['bound_by']}) ({card})")
+        self.details.setdefault("codec_times", {}).update(rows)
+        return rows
 
     def time_paged(self, which=("smollm", "d256"), plain=True):
         """K3 and K4 at the shapes of PERF.md's kernel table, posit16
@@ -2002,6 +2259,12 @@ class Smoke:
         if {k: launches[k] for k in expect} != expect:
             raise AssertionError(f"arithmetic launch counts {launches} "
                                  f"differ from the path's {expect}")
+        # pnp.asarray encodes a, b, c, A and the three W; nothing decodes
+        # or round-trips
+        codec = {"encode_block": 7, "decode_block": 0, "round_trip_block": 0}
+        if {k: launches[k] for k in codec} != codec:
+            raise AssertionError(f"arithmetic codec launches {launches} "
+                                 f"differ from the path's {codec}")
         # every encode of the counted run (pnp.asarray) against the plain
         # encode of the same values, in full on the card
         for label, arr, v in (("a", a, x), ("b", b, y), ("c", c, z),
@@ -2245,7 +2508,11 @@ class Smoke:
                      busy_us / plain_wall_us if busy_us else None,
                  "device_launches_per_step": launches / steps,
                  "top_kernels_ms_per_step": {
-                     k: v[0] / steps / 1e3 for k, v in top}}
+                     k: v[0] / steps / 1e3 for k, v in top},
+                 "codec_kernels_per_step": {
+                     k: {"ms": by_name.get(k, [0.0, 0])[0] / steps / 1e3,
+                         "launches": by_name.get(k, [0.0, 0])[1] / steps}
+                     for k in CODEC_KERNEL_SYMBOLS}}
         self.details[key] = trace
         if not busy_us:
             log("[trace] the profiler saw no device time: busy share not "
@@ -2261,6 +2528,9 @@ class Smoke:
             f"({self.details['gpu']})")
         for k, v in trace["top_kernels_ms_per_step"].items():
             log(f"[trace]   {v:8.3f} ms/step  {k}")
+        log("[trace]   K1 a step: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms in {v['launches']:.0f}"
+            for k, v in trace["codec_kernels_per_step"].items()))
 
     def trace_prefill(self, qparams, cfg, reqs, key):
         """One prefill step of 8 x 128 prompt tokens outside the counted
@@ -2629,7 +2899,11 @@ class Smoke:
                  "flash_kernels": {
                      k: {"ms": by_name.get(k, [0.0, 0])[0] / 1e3,
                          "launches": by_name.get(k, [0.0, 0])[1]}
-                     for k in FLASH_KERNEL_SYMBOLS}}
+                     for k in FLASH_KERNEL_SYMBOLS},
+                 "codec_kernels": {
+                     k: {"ms": by_name.get(k, [0.0, 0])[0] / 1e3,
+                         "launches": by_name.get(k, [0.0, 0])[1]}
+                     for k in CODEC_KERNEL_SYMBOLS}}
         if not busy:
             log("[train] the profiler saw no device time: busy share not "
                 "measured")
@@ -2646,6 +2920,11 @@ class Smoke:
         for k, v in trace["flash_kernels"].items():
             log(f"[train]   flash: {v['ms']:9.3f} ms in {v['launches']} "
                 f"launches  {k}")
+        for k, v in trace["codec_kernels"].items():
+            log(f"[train]   K1: {v['ms']:9.3f} ms in {v['launches']} "
+                f"launches  {k}")
+        k1_ms = sum(v["ms"] for v in trace["codec_kernels"].values())
+        log(f"[train]   K1 in all: {k1_ms:.3f} ms a step")
         return trace
 
     def train_resume(self, root):
@@ -3335,8 +3614,10 @@ class Smoke:
         return r, k, v, logw, u
 
     def check_round_trip(self):
-        """The scans' direct round trip (csrc/recurrent_scan.cu::posit_rt)
-        against posit_decode(posit_encode(x)) on every one of the 2^32 f32
+        """The direct round trip (csrc/posit_codec.cuh::posit_rt: K12's,
+        K13's and K1's round_trip_block's), through recurrent_scan.cu's
+        check kernel, against posit_decode(posit_encode(x)) on every one
+        of the 2^32 f32
         patterns: P16_2 and P8_2 in their compiled instances and at run
         time, and five formats only at run time (es 0, 1, 3 and 4); any
         mismatch fails."""
@@ -4007,7 +4288,11 @@ GROUPED_KERNEL_SYMBOLS = ("grouped_stream_kernel", "grouped_mma_kernel",
 FLASH_KERNEL_SYMBOLS = ("flash_fwd_kernel", "flash_fwd_paged_kernel",
                         "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 TRAINING_KERNELS = ("flash_prefill", "flash_prefill_bwd_dq",
-                    "flash_prefill_bwd_dkv", "posit_gemm_transpose_a")
+                    "flash_prefill_bwd_dkv", "posit_gemm_transpose_a",
+                    "round_trip_block")
+# K1's device symbols: decode, encode, the round trip, the append
+CODEC_KERNEL_SYMBOLS = ("decode_block_kernel", "encode_block_kernel",
+                        "round_trip_kernel", "paged_append_kernel")
 SERVING_KERNELS = ("decode_block", "encode_block", "paged_append", "pw_gemm",
                    "paged_flash_decode", "paged_flash_prefill")
 
@@ -4145,14 +4430,14 @@ def serving_launches(cfg, prefill_steps: int, decode_steps: int,
     the PTQ makes (not per step).  Per attention layer and step: the paged
     append and attention, and the GEMMs (dense: 7 `pw_gemm`; MoE: 4
     `pw_gemm`, the f32 router's `posit_gemm` after its posit round trip,
-    one encode and one decode, and 3 `grouped_gemm`).  Per rwkv6 layer and
+    one `round_trip_block`, and 3 `grouped_gemm`).  Per rwkv6 layer and
     step: 8 `pw_gemm` (5 time-mix, 3 channel-mix projections), the WKV
-    scan, and 4 encodes and 4 decodes (two token shifts decoded from the
-    pool, round-tripped at use and stored back).  Per rglru layer and step:
-    8 `pw_gemm` (5 block projections, 3 MLP), the RG-LRU scan, 2 encodes
-    and 2 decodes (the conv tail: decoded, round-tripped, stored).  Per
-    step the unembedding and the embedding rows' decode; the PTQ encodes
-    every weight table.  A prefill step's `pw_gemm`s (M = 1,024 rows) and
+    scan, and for each of its two token shifts a decode from the pool, a
+    `round_trip_block` at use and an encode back.  Per rglru layer and
+    step: 8 `pw_gemm` (5 block projections, 3 MLP), the RG-LRU scan, and
+    the conv tail's decode, `round_trip_block` and encode.  Per step the
+    unembedding and the embedding rows' decode; the PTQ encodes every
+    weight table.  A prefill step's `pw_gemm`s (M = 1,024 rows) and
     the MoE router's `posit_gemm` (M = 8 or 1,024) run the tiled kernel:
     each one its plan splits over K adds one split-K reduce
     (`pw_gemm_reduce`, `posit_gemm_reduce`); `weights` (`gemm_weights` of
@@ -4163,7 +4448,8 @@ def serving_launches(cfg, prefill_steps: int, decode_steps: int,
     n_attn = sum(k in ("attn", "attn_local") for k in kinds)
     n_rwkv, n_rg = kinds.count("rwkv6"), kinds.count("rglru")
     tables = 7 * n_attn + 8 * (n_rwkv + n_rg) + 1
-    codec = 4 * n_rwkv + 2 * n_rg            # encodes (= decodes) per step
+    # state leaves a step: each one decode, one round trip, one encode
+    codec = 2 * n_rwkv + n_rg
     expect = {"paged_flash_decode": n_attn * decode_steps,
               "paged_flash_prefill": n_attn * prefill_steps,
               "paged_append": n_attn * steps,
@@ -4179,7 +4465,8 @@ def serving_launches(cfg, prefill_steps: int, decode_steps: int,
     if cfg.moe is None:
         expect.update(pw_gemm=tables * steps,
                       decode_block=(1 + codec) * steps,
-                      encode_block=tables + codec * steps)
+                      encode_block=tables + codec * steps,
+                      round_trip_block=codec * steps)
     else:
         if n_rwkv or n_rg:
             raise NotImplementedError("MoE launch structure is for "
@@ -4189,8 +4476,8 @@ def serving_launches(cfg, prefill_steps: int, decode_steps: int,
             + splitk_reduces(routers[1::2]) * prefill_steps))
         expect.update(pw_gemm=(4 * L + 1) * steps, posit_gemm=L * steps,
                       grouped_gemm=3 * L * steps,
-                      decode_block=(L + 1) * steps,
-                      encode_block=tables + L * steps)
+                      decode_block=steps, encode_block=tables,
+                      round_trip_block=L * steps)
     return expect, {"encode_block": tables}
 
 
@@ -4202,7 +4489,7 @@ def training_launches(cfg, steps: int, p16: bool, weights=(),
     forward, recomputed, and twice in the backward (dA, and dB by
     `transpose_a`).  An MoE layer's three expert GEMMs run K10 forward,
     recomputed and as dX (`transpose_b`), and K11 once.  With posit16 STE
-    weights every float table is cast (one encode, one decode) in the
+    weights every float table is cast (one `round_trip_block`) in the
     forward and the recompute (7 per dense layer, 8 per MoE layer: the
     router and three expert tables in place of the MLP's three), and the
     tied table 3 times (embed, unembed, its recompute).  Each GEMM the
@@ -4230,7 +4517,8 @@ def training_launches(cfg, steps: int, p16: bool, weights=(),
               "flash_prefill": 2 * L * steps,
               "flash_prefill_bwd_dq": L * steps,
               "flash_prefill_bwd_dkv": L * steps,
-              "encode_block": casts * steps, "decode_block": casts * steps}
+              "round_trip_block": casts * steps, "encode_block": 0,
+              "decode_block": 0}
     if cfg.moe:
         expect.update(grouped_gemm=9 * L * steps,
                       grouped_gemm_transpose_b=3 * L * steps,
@@ -4243,6 +4531,8 @@ KERNEL_META = {
                      "src/repro/kernels/posit_codec.py:41"),
     "encode_block": ("src/repro_torch/csrc/posit_codec.cu",
                      "src/repro/kernels/posit_codec.py:59"),
+    "round_trip_block": ("src/repro_torch/csrc/posit_codec.cu",
+                         "src/repro/kernels/posit_codec.py:59"),
     "paged_append": ("src/repro_torch/csrc/posit_codec.cu",
                      "src/repro/kernels/posit_codec.py:59"),
     "pw_gemm": ("src/repro_torch/csrc/posit_gemm.cu",
@@ -4303,6 +4593,12 @@ def main() -> int:
                     "9b's decode and prefill shapes, without the plain "
                     "versions (with --src, another commit's kernels "
                     "through its own wrappers under the same harness)")
+    ap.add_argument("--codec-times", action="store_true", help="run only "
+                    "K1's timings (decode, encode, the append, and the "
+                    "round trip at an olmoe-1b-7b expert stack beside "
+                    "decode(encode())), without the plain versions (with "
+                    "--src, another commit's kernels through its own "
+                    "wrappers under the same harness)")
     ap.add_argument("--prefill-traces", action="store_true", help="run "
                     "only the profiled prefill steps of rwkv6-3b and "
                     "recurrentgemma-9b (with --src, another commit's "
@@ -4331,7 +4627,11 @@ def main() -> int:
     card = gpu_line()
     log(card)
     resolve_device("cuda")                      # pins TF32 off
-    log(f"[build] {build.build_all():.1f} s (nvcc, sm_90a, in parallel); "
+    # the timing-only modes build just the libraries they run
+    only = (("posit_codec",) if args.codec_times else
+            ("recurrent_scan",) if args.scan_times else None)
+    secs = build.build_all(only) if only else build.build_all()
+    log(f"[build] {secs:.1f} s (nvcc, sm_90a, in parallel); "
         f"torch {torch.__version__} cuda {torch.version.cuda}; package "
         f"{os.path.dirname(build.__file__)}")
 
@@ -4356,6 +4656,9 @@ def main() -> int:
         return 0
     if args.scan_times:
         log(json.dumps(s.time_scans(plain=False)))
+        return 0
+    if args.codec_times:
+        log(json.dumps(s.time_codec(plain=False)))
         return 0
     if args.prefill_traces:
         s.prefill_traces()
@@ -4392,6 +4695,11 @@ def main() -> int:
     s.details["paged_attention_ptxas"] = regs
     log("[build] paged_attention: paged_decode_kernel registers "
         f"{sorted(r['registers'] for r in regs)}, no spills")
+    regs = ptxas_report(build, "posit_codec", CODEC_KERNEL_SYMBOLS)
+    s.details["posit_codec_ptxas"] = regs
+    log("[build] posit_codec: " + ", ".join(
+        f"{r['symbol']} {r['registers']}" for r in regs)
+        + " registers, no spills")
     regs = ptxas_report(build, "recurrent_scan", ("wkv_scan_kernel",
                                                   "rglru_scan_kernel",
                                                   "rt_check_kernel"))

@@ -17,10 +17,11 @@
 // Exactness.  The state update is a product, a product and a sum, each
 // rounded on its own (__fmul_rn / __fadd_rn, which nvcc never contracts
 // into an FMA), and expf, the same libm function PyTorch's CUDA exp calls;
-// the round trip below equals posit_decode(posit_encode(x)) on every f32
-// input.  So the state equals the plain version's (torch.exp, *, +, the
-// codec) bit for bit, and one last-bit difference can never flip a posit
-// rounding and ride along in the state.  K12's y is a sum of per-thread
+// the round trip (posit_rt, posit_codec.cuh) equals
+// posit_decode(posit_encode(x)) on every f32 input.  So the state equals
+// the plain version's (torch.exp, *, +, the codec) bit for bit, and one
+// last-bit difference can never flip a posit rounding and ride along in
+// the state.  K12's y is a sum of per-thread
 // fmaf chains combined by shuffles in a fixed order: within the f32
 // dot-product bound of the plain version's einsum, and the same bits from
 // run to run.
@@ -34,8 +35,9 @@
 // (update, y term, the round trip's fast path and its branch) that is
 // ~110 M warp instructions, ~0.1 ms at the card's full issue rate.
 //
-// The round trip (posit_rt).  Where the posit keeps every exponent bit and
-// at least one fraction bit (te in [-(n-3-es) 2^es, (n-3-es) 2^es - 1]:
+// The round trip (posit_rt, in posit_codec.cuh, shared with K1's
+// round_trip_block).  Where the posit keeps every exponent bit and at
+// least one fraction bit (te in [-(n-3-es) 2^es, (n-3-es) 2^es - 1]:
 // P16_2 [-44, 43], P8_2 [-12, 11]), posit_encode rounds the f32 significand
 // to nearest-even at the bit the regime's length fixes (its case A, the
 // pattern's last bit being the fraction's), and decoding gives that value
@@ -91,40 +93,10 @@ static_assert(kWkvCols * kWkvR == kWkvThreads, "a block is kWkvCols columns");
 static_assert(kWkvR == 4 && kWkvRows % 4 == 0, "lane = 8 q + column");
 static_assert((kRgDepth & (kRgDepth - 1)) == 0, "ring slots by mask");
 
-// Format template arguments: N = kNoRt, no round trip (f32 state);
-// kRuntime, (n, es) from the kernel's arguments; else Posit<N, ES>.
-constexpr int kNoRt = 0;
-constexpr int kRuntime = -1;
-
-// ---- the direct round trip ------------------------------------------------
-__device__ __forceinline__ float rt_codec(float x, int n, int es) {
-  return posit_decode(posit_encode(x, n, es), n, es);
-}
-
-// x -> decode(encode(x)) in Posit<n, es> (n <= 16), bit-identical to
-// rt_codec on every f32 input; identity for kNoRt.
-template <int N, int ES>
-__device__ __forceinline__ float posit_rt(float x, int n_rt, int es_rt) {
-  if constexpr (N == kNoRt) {
-    return x;
-  } else {
-    const int n = N > 0 ? N : n_rt;
-    const int es = N > 0 ? ES : es_rt;
-    const int span = (n - 3 - es) * (1 << es);   // case A: te in [-span, span)
-    const int lo = max(127 - span, 1);            // f32 normals only
-    const int hi = min(126 + span, 232);          // ex + sh <= 254: M finite
-    const uint32_t bits = __float_as_uint(x);
-    const int ex = static_cast<int>((bits >> 23) & 0xFFu);
-    if (__builtin_expect(hi < lo || static_cast<unsigned>(ex - lo) >
-                                        static_cast<unsigned>(hi - lo), 0))
-      return rt_codec(x, n, es);
-    const int k = (ex - 127) >> es;               // the regime's k
-    const int sh = 26 - n + es + (k ^ (k >> 31)); // 23 - fraction bits
-    const float M = __uint_as_float((bits & 0xFF800000u) +
-                                    (static_cast<uint32_t>(sh) << 23));
-    return __fsub_rn(__fadd_rn(x, M), M);
-  }
-}
+// Format template arguments (posit_codec.cuh): N = kNoRt, no round trip
+// (f32 state); kRuntime, (n, es) from the kernel's arguments; else
+// Posit<N, ES>.  posit_rt, the direct round trip, is posit_codec.cuh's,
+// shared with K1's round_trip_block.
 
 // ---- cp.async (sm_80+) ----------------------------------------------------
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

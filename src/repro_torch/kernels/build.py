@@ -32,8 +32,9 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # cudaError_t of its launch as an int).
 SIGNATURES = {
     "posit_codec": {
-        "posit_decode_block": (_P, _P, _LL, _I, _I, _I, _P),
-        "posit_encode_block": (_P, _P, _LL, _I, _I, _I, _P),
+        "posit_decode_block": (_P, _P, _LL, _LL, _LL, _I, _I, _I, _P),
+        "posit_encode_block": (_P, _P, _LL, _LL, _LL, _I, _I, _I, _P),
+        "posit_round_trip_block": (_P, _P, _LL, _LL, _LL, _I, _I, _P),
         "posit_paged_append": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P),
     },

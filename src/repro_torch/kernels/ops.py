@@ -1,6 +1,7 @@
 """Kernel dispatch for the model, serving and arithmetic code.
 
-The counterpart of ``repro/kernels/ops.py``: `pw_matmul`, `decode`/`encode`,
+The counterpart of ``repro/kernels/ops.py``: `pw_matmul`, `decode`/`encode`
+and their one-pass composition `round_trip`,
 the paged attention entry points, the [BH, Sq, D] `attention`, the
 contiguous `flash_prefill` and its backward `flash_prefill_bwd`, the MoE's
 differentiable `grouped_matmul`, the recurrent scans `wkv_scan` and
@@ -38,6 +39,8 @@ from repro_torch.kernels import ref as _ref
 KERNELS = {
     "decode_block": (_codec.decode_block, _codec.decode_block_plain),
     "encode_block": (_codec.encode_block, _codec.encode_block_plain),
+    "round_trip_block": (_codec.round_trip_block,
+                         _codec.round_trip_block_plain),
     "paged_append": (_codec.paged_append, _codec.paged_append_plain),
     "pw_gemm": (_gemm.pw_gemm, _gemm.pw_gemm_plain),
     "paged_flash_decode": (_fa.paged_flash_decode,
@@ -131,6 +134,12 @@ def decode(p, cfg: PositConfig | None = None) -> torch.Tensor:
 def encode(v: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     """f32 values -> posit payload bits (raw)."""
     return _codec.encode_block(v, cfg)
+
+
+def round_trip(v: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
+    """f32 values -> the f32 values their posit encoding decodes to, in one
+    launch (`decode(encode(v, cfg), cfg)`)."""
+    return _codec.round_trip_block(v, cfg)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,

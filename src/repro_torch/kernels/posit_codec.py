@@ -1,9 +1,15 @@
-"""K1: the bulk posit codec and the fused KV append (``csrc/posit_codec.cu``).
+"""K1: the bulk posit codec, its one-pass round trip and the fused KV
+append (``csrc/posit_codec.cu``).
 
 Replaces ``repro/kernels/posit_codec.py::decode_block`` (:41) and
 ``::encode_block`` (:59); `paged_append` replaces the jnp encode + scatter
-of ``repro/serving/paged_kv.py::paged_append_kv`` (:266).  All three are
-HBM-bound elementwise passes; see the source for the design.
+of ``repro/serving/paged_kv.py::paged_append_kv`` (:266).
+`round_trip_block` is ``decode_block(encode_block(x))`` in one pass, the
+function the reference's QAT cast and ``rt_values`` compute as one fused
+expression.  All four are HBM-bound passes; see the source for the design.
+
+`codec_split` mirrors the source's split of a pass into lanes and steps of
+one float4; the C entries refuse a split that differs (cudaError 9).
 """
 from __future__ import annotations
 
@@ -17,6 +23,27 @@ def _posit_dtype(cfg: PositConfig) -> torch.dtype:
     if cfg.n > 16:
         raise NotImplementedError(f"{cfg}: the codec kernel covers n <= 16")
     return getattr(torch, cfg.storage_dtype_name)
+
+
+def codec_split(count: int, f32_ptr: int, other_ptr: int,
+                other_bytes: int) -> tuple[int, int]:
+    """How a pass walks `count` elements -> (head, nvec): `head` elements
+    lane by lane until the f32 side (at `f32_ptr`) is 16-byte aligned, then
+    `nvec` steps of 4 elements (one float4; 4 posits of `other_bytes` each,
+    or a float4 for the round trip, on the other side at `other_ptr`), then
+    the tail lane by lane.  If the other side is not aligned to its 4
+    elements there, every element is a lane (head = count)."""
+    head = (-f32_ptr % 16) // 4
+    if head > count or (other_ptr + other_bytes * head) % (4 * other_bytes):
+        head = count
+    return head, (count - head) // 4
+
+
+# The source's constants (the CPU tests hold them to it): threads a block
+# (one entry of each 256-entry table a thread) and steps a thread has in
+# flight.
+CODEC_THREADS = 256
+STEPS_IN_FLIGHT = 2
 
 
 def decode_block_plain(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
@@ -37,9 +64,11 @@ def decode_block(p: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     if p.numel() == 0:
         return out
+    head, nvec = codec_split(p.numel(), out.data_ptr(), p.data_ptr(),
+                             p.element_size())
     rc = lib.posit_decode_block(p.data_ptr(), out.data_ptr(), p.numel(),
-                                build.DTYPE_CODE[p.dtype], cfg.n, cfg.es,
-                                build.stream(p))
+                                head, nvec, build.DTYPE_CODE[p.dtype], cfg.n,
+                                cfg.es, build.stream(p))
     decode_block.launches += 1
     build.check_launch(rc, "posit_decode_block")
     return out
@@ -61,11 +90,40 @@ def encode_block(v: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
     out = torch.empty(v.shape, dtype=dt, device=v.device)
     if v.numel() == 0:
         return out
+    head, nvec = codec_split(v.numel(), v.data_ptr(), out.data_ptr(),
+                             out.element_size())
     rc = lib.posit_encode_block(v.data_ptr(), out.data_ptr(), v.numel(),
-                                build.DTYPE_CODE[dt], cfg.n, cfg.es,
-                                build.stream(v))
+                                head, nvec, build.DTYPE_CODE[dt], cfg.n,
+                                cfg.es, build.stream(v))
     encode_block.launches += 1
     build.check_launch(rc, "posit_encode_block")
+    return out
+
+
+def round_trip_block_plain(v: torch.Tensor,
+                           cfg: PositConfig) -> torch.Tensor:
+    round_trip_block_plain.calls += 1
+    return ref.decode_ref(ref.encode_ref(v, cfg), cfg)
+
+
+def round_trip_block(v: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
+    """f32 -> f32 decode(encode(v)) in one pass (RNE, saturating; NaN and
+    Inf -> NaR -> NaN), any shape: the values posit storage would hold."""
+    if v.device.type == "cpu":
+        return round_trip_block_plain(v, cfg)
+    lib = build.library("posit_codec")
+    _posit_dtype(cfg)
+    v = v.to(torch.float32).contiguous()
+    build.check_cuda_tensors("round_trip_block", v)
+    out = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    if v.numel() == 0:
+        return out
+    head, nvec = codec_split(v.numel(), v.data_ptr(), out.data_ptr(), 4)
+    rc = lib.posit_round_trip_block(v.data_ptr(), out.data_ptr(), v.numel(),
+                                    head, nvec, cfg.n, cfg.es,
+                                    build.stream(v))
+    round_trip_block.launches += 1
+    build.check_launch(rc, "posit_round_trip_block")
     return out
 
 
@@ -117,7 +175,8 @@ def paged_append(k, v, k_pages, v_pages, page_table, seq_lens, num_new,
     return None
 
 
-for _fn in (decode_block, encode_block, paged_append):
+for _fn in (decode_block, encode_block, round_trip_block, paged_append):
     _fn.launches = 0
-for _fn in (decode_block_plain, encode_block_plain, paged_append_plain):
+for _fn in (decode_block_plain, encode_block_plain, round_trip_block_plain,
+            paged_append_plain):
     _fn.calls = 0

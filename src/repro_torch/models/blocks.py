@@ -213,7 +213,7 @@ def rt_values(x: torch.Tensor, pcfg) -> torch.Tensor:
     nothing."""
     if pcfg is None:
         return x
-    return ops.decode(ops.encode(x.to(torch.float32), pcfg), pcfg)
+    return ops.round_trip(x.to(torch.float32), pcfg)
 
 
 def select_last(x: torch.Tensor, num_new) -> torch.Tensor:

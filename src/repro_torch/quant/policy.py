@@ -32,14 +32,16 @@ NONE = PositPolicy()
 
 
 def posit_cast(w: torch.Tensor, cfg: PositConfig) -> torch.Tensor:
-    """f32 -> posit -> f32 round trip: the values posit weights will hold."""
+    """f32 -> posit -> f32 round trip (one codec launch): the values posit
+    weights will hold."""
     from repro_torch.kernels import ops
-    return ops.decode(ops.encode(w.to(torch.float32), cfg), cfg).to(w.dtype)
+    return ops.round_trip(w.to(torch.float32), cfg).to(w.dtype)
 
 
 class _PositCastSTE(torch.autograd.Function):
-    """Forward: f32 -> posit -> f32 through the codec kernels.  Backward:
-    the gradient passes unchanged (the straight-through estimator)."""
+    """Forward: f32 -> posit -> f32 through the codec's one-pass round
+    trip.  Backward: the gradient passes unchanged (the straight-through
+    estimator)."""
 
     @staticmethod
     def forward(ctx, w, cfg):

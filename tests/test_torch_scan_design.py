@@ -93,7 +93,7 @@ def rt_fast_lanes(x, n, es):
 
 
 def rt_mirror(x, n, es):
-    """numpy mirror of `posit_rt` in csrc/recurrent_scan.cu: x + M - M in
+    """numpy mirror of `posit_rt` in csrc/posit_codec.cuh: x + M - M in
     f32 with M = sign(x) 2^(te + sh) on the fast lanes, the port's codec
     (posit_decode(posit_encode(x))) on the others."""
     x = np.ascontiguousarray(x, dtype=np.float32)
